@@ -13,7 +13,7 @@ Inputs are (price, volume) histories as fixed-shape arrays with validity masks
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..ops import features as F
 from ..types import SIDE_LONG, Levels

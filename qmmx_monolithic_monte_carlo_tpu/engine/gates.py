@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..config import EngineParams
 from ..ops import confidence as C

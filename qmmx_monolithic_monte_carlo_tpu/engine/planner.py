@@ -14,7 +14,7 @@ component inventory, so the rebuild keeps it available (and pure/vmap-able).
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..ops import features as F
 from ..types import SIDE_LONG, SIDE_SHORT, Levels

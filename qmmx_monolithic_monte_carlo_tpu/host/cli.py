@@ -255,32 +255,40 @@ def _heston_dict(args):
             if hasattr(args, f"heston_{k}")}
 
 
+def _kernel_reason(args, levels, sampler) -> str | None:
+    """Why the fused first-contact kernel cannot run this ``paths`` call, or
+    None when it can."""
+    if getattr(args, "engine", False) or getattr(args, "gated", False):
+        return "the fused kernel runs first-contact replay only"
+    if getattr(args, "exact_tail", False):
+        return "--exact-tail selects over the XLA pipeline's population"
+    if getattr(args, "ckpt_dir", None):
+        return "--ckpt-dir runs the resumable XLA pipeline"
+    from .. import backend as B
+
+    return B.kernel_reason(levels, num_paths=args.num_paths,
+                           num_bars=args.num_bars, sampler=sampler)
+
+
 def cmd_paths(args):
     import jax
 
-    from ..sim import pathsim
+    from .. import backend as B
 
     conn = _connect(args)
     rows, levels, params = _levels_and_params(conn, args)
-    backend = args.backend
-    if backend == "auto":
-        backend = "pallas" if jax.devices()[0].platform != "cpu" else "xla"
-    if getattr(args, "exact_tail", False):
-        if backend != "xla":
-            raise SystemExit(
-                "--exact-tail selects over the XLA pipeline's exact path "
-                "population; use --backend xla (the kernels draw their own "
-                "on-chip PRNG streams, so their population differs by seed "
-                "mapping, not statistics)")
-        if getattr(args, "ckpt_dir", None):
-            raise SystemExit("--exact-tail does not run under --ckpt-dir")
     sampler = getattr(args, "sampler", "gbm")
+    try:
+        backend = B.resolve(args.backend,
+                            kernel_reason=_kernel_reason(args, levels, sampler))
+    except B.BackendError as e:
+        raise SystemExit(str(e))
+    if getattr(args, "exact_tail", False) and getattr(args, "ckpt_dir", None):
+        raise SystemExit("--exact-tail does not run under --ckpt-dir")
     hist = (_hist_paths_bars(args)
             if sampler in ("bootstrap", "block_bootstrap") else None)
     block_len = int(getattr(args, "block_len", 10))
     heston = _heston_dict(args) if sampler == "heston" else None
-    # every fused kernel family (engine, gated, first-contact) runs all four
-    # samplers — heston rides `_heston_block` in the block-form kernels
 
     noise = None
     stds = (getattr(args, "entry_slip_std", 0.0),
@@ -315,14 +323,9 @@ def cmd_paths(args):
             heston=heston,
         )
     elif getattr(args, "engine", False):
-        # the FULL 12-gate engine over generated paths (sim/enginepath.py);
-        # on TPU the fused kernel (ops/pallas_engine.py) runs the identical
-        # ladder entirely on-chip
+        # the FULL 12-gate engine over generated paths (sim/enginepath.py)
         from ..sim import enginepath as EPATH
 
-        use_kernel = (backend == "pallas"
-                      and not getattr(args, "ckpt_dir", None)
-                      and len(rows) <= 64)  # ops.pallas_engine.MAX_KERNEL_LEVELS
         if getattr(args, "ckpt_dir", None):
             from ..sim import resumable
 
@@ -334,22 +337,6 @@ def cmd_paths(args):
                 sampler=sampler, hist_bars=hist, block_len=block_len,
                 heston=heston,
             )
-        elif use_kernel:
-            from ..ops.pallas_engine import ENGINE_BLOCK, mc_paths_pallas_engine
-            from ..types import Levels
-
-            if args.num_paths % ENGINE_BLOCK:
-                raise SystemExit(
-                    f"--num-paths must be a multiple of {ENGINE_BLOCK} "
-                    "for the pallas engine backend")
-            small = Levels.from_rows(rows, max_levels=max(1, len(rows)))
-            stats, skips, escal = mc_paths_pallas_engine(
-                args.seed, small, params,
-                num_paths=args.num_paths, num_bars=args.num_bars, s0=args.s0,
-                sigma=args.sigma, noise=noise,
-                sampler=sampler, hist_bars=hist, block_len=block_len,
-                heston=heston, antithetic=args.antithetic,
-            )
         else:
             stats, skips, escal = EPATH.mc_paths_engine(
                 jax.random.key(args.seed), levels, params,
@@ -360,6 +347,7 @@ def cmd_paths(args):
                 antithetic=args.antithetic,
             )
         out = {
+            "backend": backend,
             "paths": float(stats.n), "entered": float(stats.n_entered),
             "hit_rate": float(stats.hit_rate), "mean_r": float(stats.mean_r),
             "std_r": float(stats.std_r), "var_05": float(stats.quantile(0.05)),
@@ -386,67 +374,32 @@ def cmd_paths(args):
         print(json.dumps(out))
         return 0
     elif getattr(args, "gated", False):
-        # engine-gated multi-trade lifecycle (sim/gatedpath.py); the fused
-        # kernel (ops/pallas_mc._gated_kernel) runs the same state machine
-        # on-chip at ~7x the XLA scan
+        # engine-gated multi-trade lifecycle (sim/gatedpath.py)
         from ..sim import gatedpath
 
         gate = gatedpath.GateConfig.from_params(
             params, touch_limit=args.touch_limit,
             cooldown_bars=args.cooldown_bars,
         )
-        if backend == "pallas":
-            from ..ops.pallas_mc import GATED_BLOCK, mc_paths_pallas_gated
-            from ..types import Levels
-
-            if len(rows) > 8:
-                raise SystemExit("pallas backend supports up to 8 levels; "
-                                 "use --backend xla")
-            if args.num_paths % GATED_BLOCK:
-                raise SystemExit(
-                    f"--num-paths must be a multiple of {GATED_BLOCK} "
-                    "for the pallas gated backend")
-            small = Levels.from_rows(rows[:8], max_levels=8)
-            stats = mc_paths_pallas_gated(
-                args.seed, small, params, gate,
-                num_paths=args.num_paths, num_bars=args.num_bars, s0=args.s0,
-                sigma=args.sigma, noise=noise,
-                sampler=sampler, hist_bars=hist, block_len=block_len,
-                heston=heston, antithetic=args.antithetic,
-            )
-        else:
-            stats = gatedpath.mc_paths_gated(
-                jax.random.key(args.seed), levels, params, gate,
-                num_paths=args.num_paths, num_bars=args.num_bars, s0=args.s0,
-                sigma=args.sigma, block_paths=min(args.num_paths, 1 << 17),
-                antithetic=args.antithetic, noise=noise,
-                sampler=sampler, hist_bars=hist, block_len=block_len,
-                heston=heston,
-            )
-    elif backend == "pallas":
-        from ..ops.pallas_mc import mc_paths_pallas
-        from ..types import Levels
-
-        small = Levels.from_rows(rows[:8], max_levels=8) if len(rows) <= 8 else None
-        if small is None:
-            raise SystemExit("pallas backend supports up to 8 levels; use --backend xla")
-        stats = mc_paths_pallas(
-            args.seed, small, params,
-            num_paths=args.num_paths, num_bars=args.num_bars, s0=args.s0,
-            sigma=args.sigma, noise=noise,
-            sampler=sampler, hist_bars=hist, block_len=block_len,
-            heston=heston, antithetic=args.antithetic,
-        )
-    else:
-        stats = pathsim.mc_paths(
-            jax.random.key(args.seed), levels, params,
+        stats = gatedpath.mc_paths_gated(
+            jax.random.key(args.seed), levels, params, gate,
             num_paths=args.num_paths, num_bars=args.num_bars, s0=args.s0,
             sigma=args.sigma, block_paths=min(args.num_paths, 1 << 17),
             antithetic=args.antithetic, noise=noise,
             sampler=sampler, hist_bars=hist, block_len=block_len,
             heston=heston,
         )
+    else:
+        stats = B.first_contact_paths(
+            backend, args.seed, levels, params,
+            num_paths=args.num_paths, num_bars=args.num_bars, s0=args.s0,
+            sigma=args.sigma, block_paths=1 << 17,
+            antithetic=args.antithetic, noise=noise,
+            sampler=sampler, hist_bars=hist, block_len=block_len,
+            heston=heston,
+        )
     out = {
+        "backend": backend,
         "paths": float(stats.n), "entered": float(stats.n_entered),
         "hit_rate": float(stats.hit_rate), "mean_r": float(stats.mean_r),
         "std_r": float(stats.std_r), "var_05": float(stats.quantile(0.05)),
@@ -533,16 +486,16 @@ def cmd_wal(args):
 
 def _sweep_engine(args, rows, levels, params):
     """(stop, tp[, level-jitter std]) grid over the FULL 12-gate engine
-    lifecycle with common random numbers.  TPU: one fused-kernel launch with
-    the grid on the accumulator axis
-    (ops/pallas_engine.mc_paths_pallas_engine_sweep); CPU: per-config XLA
-    runs sharing the SAME key (identical paths → exact CRN).  With
-    ``--jitter-stds``, every row replays the SAME per-entry noise normals
-    scaled by its row's level-jitter std — a slippage-robustness surface."""
+    lifecycle with common random numbers: per-config XLA runs sharing the
+    SAME key (identical paths, exact CRN).  With ``--jitter-stds``, every row
+    replays the SAME per-entry noise normals scaled by its row's level-jitter
+    std — a slippage-robustness surface."""
     import itertools
 
     import jax
     import jax.numpy as jnp
+
+    from ..sim import enginepath as EPATH
 
     jitters = getattr(args, "jitter_stds", None)
     combos = list(itertools.product(args.stops, args.tps, jitters or [None]))
@@ -550,60 +503,30 @@ def _sweep_engine(args, rows, levels, params):
     hist = _hist_paths_bars(args) if sampler != "gbm" else None
     block_len = int(getattr(args, "block_len", 10))
     heston = _heston_dict(args) if sampler == "heston" else None
-    use_kernel = jax.devices()[0].platform != "cpu" and len(rows) <= 64
 
-    def mk_noise(jit_stds):
-        if jitters is None:
-            return None
+    def mk_noise(jit_std):
         from ..sim.montecarlo import McNoise
 
         return McNoise(
-            level_jitter_std=jnp.asarray(jit_stds, jnp.float32),
-            entry_slip_std=jnp.asarray(
-                jnp.broadcast_to(jnp.float32(args.entry_slip_std), jnp.shape(jit_stds))),
-            stop_slip_std=jnp.asarray(
-                jnp.broadcast_to(jnp.float32(args.stop_slip_std), jnp.shape(jit_stds))),
-            target_slip_std=jnp.asarray(
-                jnp.broadcast_to(jnp.float32(args.target_slip_std), jnp.shape(jit_stds))),
+            level_jitter_std=jnp.float32(jit_std),
+            entry_slip_std=jnp.float32(args.entry_slip_std),
+            stop_slip_std=jnp.float32(args.stop_slip_std),
+            target_slip_std=jnp.float32(args.target_slip_std),
         )
 
-    if use_kernel:
-        from ..ops.pallas_engine import ENGINE_BLOCK, mc_paths_pallas_engine_sweep
-        from ..types import Levels
-
-        if args.num_paths % ENGINE_BLOCK:
-            raise SystemExit(f"--num-paths must be a multiple of {ENGINE_BLOCK} "
-                             "for the engine sweep kernel")
-        small = Levels.from_rows(rows, max_levels=max(1, len(rows)))
-        grid_params = params.replace(
-            stop_padding=jnp.asarray([c[0] for c in combos], jnp.float32),
-            tp_padding=jnp.asarray([c[1] for c in combos], jnp.float32),
-        )
-        stats, _skips, escal = mc_paths_pallas_engine_sweep(
-            args.seed, small, grid_params,
-            num_paths=args.num_paths, num_bars=args.num_bars, s0=args.s0,
-            sigma=args.sigma, sampler=sampler, hist_bars=hist,
-            block_len=block_len, heston=heston,
-            noise=mk_noise(jnp.asarray([c[2] for c in combos], jnp.float32)
-                           if jitters else None),
-        )
-        escal = np.asarray(escal)
-    else:
-        from ..sim import enginepath as EPATH
-
-        key = jax.random.key(args.seed)   # shared key == shared paths (CRN)
-        per = [EPATH.mc_paths_engine(
-            key, levels, params.replace(
-                stop_padding=jnp.float32(sp), tp_padding=jnp.float32(tp)),
-            num_paths=args.num_paths, num_bars=args.num_bars, s0=args.s0,
-            sigma=args.sigma, block_paths=min(args.num_paths, 1 << 13),
-            sampler=sampler, hist_bars=hist, block_len=block_len,
-            heston=heston,
-            noise=mk_noise(jnp.float32(jit)) if jit is not None else None,
-        ) for sp, tp, jit in combos]
-        stats = jax.tree_util.tree_map(
-            lambda *xs: jnp.stack(xs), *[p[0] for p in per])
-        escal = np.asarray([float(p[2]) for p in per])
+    key = jax.random.key(args.seed)   # shared key == shared paths (CRN)
+    per = [EPATH.mc_paths_engine(
+        key, levels, params.replace(
+            stop_padding=jnp.float32(sp), tp_padding=jnp.float32(tp)),
+        num_paths=args.num_paths, num_bars=args.num_bars, s0=args.s0,
+        sigma=args.sigma, block_paths=min(args.num_paths, 1 << 13),
+        sampler=sampler, hist_bars=hist, block_len=block_len,
+        heston=heston,
+        noise=mk_noise(jit) if jit is not None else None,
+    ) for sp, tp, jit in combos]
+    stats = jax.tree_util.tree_map(
+        lambda *xs: jnp.stack(xs), *[p[0] for p in per])
+    escal = np.asarray([float(p[2]) for p in per])
     for g, (sp, tp, jit) in enumerate(combos):
         row = {
             "stop_padding": sp, "tp_padding": tp,
@@ -612,6 +535,7 @@ def _sweep_engine(args, rows, levels, params):
             "mean_trades": float(stats.mean_trades[g]),
             "mean_dd": float(stats.mean_dd[g]),
             "escalations": int(escal[g]),
+            "backend": "xla",
         }
         if jit is not None:
             row["level_jitter_std"] = jit
@@ -675,6 +599,7 @@ def cmd_sweep(args):
             "stop_padding": sp, "tp_padding": tp,
             "hit_rate": float(stats.hit_rate[g]),
             "mean_r": float(stats.mean_r[g]),
+            "backend": "xla",
         }
         if tl is not None:
             row["touch_limit"] = tl
@@ -725,9 +650,6 @@ def cmd_book(args):
              {"color": "orange", "type": "dashed", "index": 0,
               "price": float(s0[s]) + 0.4}] for s in range(n)]
     lv = U.stack_levels(rows, max_levels=4)
-    backend = args.backend
-    if backend == "auto":
-        backend = "pallas" if jax.devices()[0].platform != "cpu" else "xla"
     engine = getattr(args, "engine", False)
     harvest = getattr(args, "harvest", False)
     if harvest and not engine:
@@ -753,21 +675,7 @@ def cmd_book(args):
         heston=_heston_dict(args) if sampler == "heston" else None,
         antithetic=getattr(args, "antithetic", False))
     skips = escal = hv = None
-    if engine and backend == "pallas":
-        from ..ops.pallas_engine import ENGINE_BLOCK, mc_paths_pallas_engine_corr
-
-        if args.num_paths % ENGINE_BLOCK:
-            raise SystemExit(f"--num-paths must be a multiple of "
-                             f"{ENGINE_BLOCK} for the pallas engine corr "
-                             f"kernel")
-        out = mc_paths_pallas_engine_corr(
-            args.seed, lv, params, s0, sigma, beta, w,
-            paths_per_symbol=args.num_paths, num_bars=args.num_bars,
-            harvest=harvest, **samp_kw)
-        sym, port, skips, escal = out[:4]
-        if harvest:
-            hv = out[4]
-    elif engine:
+    if engine:
         from ..parallel.portfolio import portfolio_mc_engine
 
         out = portfolio_mc_engine(
@@ -778,16 +686,6 @@ def cmd_book(args):
         sym, port, skips, escal = out[:4]
         if harvest:
             hv = out[4]
-    elif backend == "pallas":
-        from ..ops.pallas_mc import GATED_BLOCK, mc_paths_pallas_gated_corr
-
-        if args.num_paths % GATED_BLOCK:
-            raise SystemExit(f"--num-paths must be a multiple of "
-                             f"{GATED_BLOCK} for the pallas corr kernel")
-        sym, port = mc_paths_pallas_gated_corr(
-            args.seed, lv, params, s0, sigma, beta, w,
-            paths_per_symbol=args.num_paths, num_bars=args.num_bars,
-            **samp_kw)
     else:
         from ..parallel.portfolio import portfolio_mc
 
@@ -807,6 +705,7 @@ def cmd_book(args):
         ml_refreshed = universe_policy_refresh(None, xs, ys, ws)
     for s in range(n):
         row = {
+            "backend": "xla",
             "symbol": s, "beta": round(float(beta[s]), 4),
             "weight": round(float(w[s]), 4),
             "hit_rate": float(sym.hit_rate[s]),
@@ -822,6 +721,7 @@ def cmd_book(args):
                               for c in np.asarray(ml_refreshed.coef[s])]
         print(json.dumps(row))
     prow = {
+        "backend": "xla",
         "portfolio": True, "mean_r": float(port.mean_r),
         "std_r": float(port.std_r),
         "var_05": float(port.quantile(0.05)),
@@ -831,10 +731,9 @@ def cmd_book(args):
     if getattr(args, "exact_tail", False):
         # certified selection over the XLA book pipeline's own population
         # (parallel/portfolio.exact_tail_book; ~6 extra generation passes)
-        if not engine or backend != "xla":
-            raise SystemExit("book --exact-tail needs --engine --backend "
-                             "xla (it selects over the XLA book pipeline's "
-                             "exact path population)")
+        if not engine:
+            raise SystemExit("book --exact-tail needs --engine (it selects "
+                             "over the book engine's exact path population)")
         from ..parallel.portfolio import exact_tail_book
 
         tail = exact_tail_book(
@@ -850,33 +749,21 @@ def cmd_book(args):
 
 def cmd_flywheel(args):
     """simulate → label → retrain → re-simulate at path scale: each round
-    runs the FULL-engine MC with the on-chip label harvest, refreshes the
+    runs the FULL-engine MC with the label harvest on, refreshes the
     ML gate (weighted IRLS on harvested bucket counts, ref :3833-3853) and
     the OnlinePolicy entry heads (ref :3753-3803), then re-simulates with
     the refreshed models armed.  Prints one JSON row per round."""
     import json as _json
-
-    import jax
 
     from ..sim import enginepath as EPATH
     from ..sim import flywheel as FW
 
     conn = _connect(args)
     rows, levels, params = _levels_and_params(conn, args)
-    backend = args.backend
-    if backend == "auto":
-        backend = "pallas" if jax.devices()[0].platform != "cpu" else "xla"
-    if backend == "pallas":
-        if len(rows) > 64:
-            raise SystemExit("pallas engine kernel supports up to 64 levels; "
-                             "use --backend xla")
-        from ..types import Levels
-
-        levels = Levels.from_rows(rows, max_levels=max(1, len(rows)))
     rounds = FW.policy_iteration(
         args.seed, levels, params, rounds=args.rounds,
         num_paths=args.num_paths, num_bars=args.num_bars, s0=args.s0,
-        sigma=args.sigma, backend=backend,
+        sigma=args.sigma,
         min_samples=args.min_samples,
         arm_policy_gate=args.arm_policy_gate,
         block_paths=min(args.num_paths, 1 << 13),
@@ -886,6 +773,7 @@ def cmd_flywheel(args):
     for i, rd in enumerate(rounds):
         st = rd.stats
         print(_json.dumps({
+            "backend": "xla",
             "round": i,
             "labeled": rd.labeled,
             "explored": rd.explored,
@@ -1063,9 +951,11 @@ def cmd_keepalive(args):
 
 
 def build_parser() -> argparse.ArgumentParser:
+    from .. import backend as B
+
     p = argparse.ArgumentParser(
-        prog="qmmx-tpu",
-        description="TPU-native QMMX Monte Carlo backtesting framework",
+        prog="qmmx",
+        description="QMMX Monte Carlo backtesting framework (JAX)",
     )
     p.add_argument("--db", default="qmmx.db", help="SQLite store path")
     sub = p.add_subparsers(dest="cmd", required=True)
@@ -1122,7 +1012,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "block_bootstrap resample RECORDED bars "
                          "(--bars-csv, real volumes — the reference MC "
                          "walks recorded bars; block_ preserves contiguous "
-                         "runs) — all three run fused on TPU")
+                         "runs); heston adds stochastic volatility")
     pa.add_argument("--block-len", type=int, default=10,
                     help="block_bootstrap: contiguous run length")
     for k, dv in (("v0", 0.04), ("kappa", 3.0), ("theta", 0.04),
@@ -1132,13 +1022,12 @@ def build_parser() -> argparse.ArgumentParser:
     pa.add_argument("--bars-csv", default=None,
                     help="recorded o/h/l/c/v history for bootstrap samplers "
                          "(default: synthetic 390-bar fixture)")
-    pa.add_argument("--backend", choices=["auto", "xla", "pallas"], default="auto",
-                    help="pallas = fused kernel on TPU (first-contact/gated: "
-                         "<=8 levels; --engine: <=64 levels, any horizon; "
-                         "beyond that the XLA pipeline runs the identical "
-                         "ladder at ~2.7M paths/s); "
-                         "auto picks by device, falling back to the XLA "
-                         "pipeline when a shape leaves the kernel envelope")
+    pa.add_argument("--backend", choices=list(B.CHOICES), default="auto",
+                    help="triton = the fused first-contact kernel on a GPU "
+                         "(gbm sampler, <=8 levels, even --num-bars, "
+                         "--num-paths a multiple of 256); xla = the JAX "
+                         "pipelines, any platform; auto = triton where the "
+                         "kernel covers the run on a GPU, else xla")
     pa.add_argument("--gated", action="store_true",
                     help="run the engine-gated multi-trade lifecycle per path "
                          "(cooldown/touch-budget/confidence gates, per-path "
@@ -1188,15 +1077,14 @@ def build_parser() -> argparse.ArgumentParser:
     sw.add_argument("--qmins", type=float, nargs="+", default=None,
                     help="gated only: put Q_MIN_PROB values on the grid axis")
     sw.add_argument("--engine", action="store_true",
-                    help="sweep the FULL 12-gate engine lifecycle (CRN; "
-                         "fused kernel on TPU, per-config XLA runs on CPU)")
+                    help="sweep the FULL 12-gate engine lifecycle (CRN: "
+                         "per-config runs over the same paths)")
     sw.add_argument("--sampler",
                     choices=["gbm", "bootstrap", "block_bootstrap"],
                     default="gbm",
                     help="bootstrap family sweeps the knob grid over "
                          "RECORDED bars (--bars-csv) with CRN — identical "
-                         "resample indices/paths per row (engine: fused "
-                         "kernel on TPU; plain/gated: XLA)")
+                         "resample indices/paths per row")
     sw.add_argument("--bars-csv", default=None,
                     help="recorded o/h/l/c/v history for --sampler bootstrap")
     sw.add_argument("--block-len", type=int, default=10,
@@ -1234,10 +1122,8 @@ def build_parser() -> argparse.ArgumentParser:
                     help="run the FULL 12-gate engine ladder per symbol "
                     "(guard/touch/fatigue/breakout/veto/ML/policy/"
                     "escalation) instead of the gated subset")
-    bk.add_argument("--backend", choices=["auto", "xla", "pallas"],
-                    default="auto")
     bk.add_argument("--exact-tail", action="store_true",
-                    help="with --engine --backend xla: EXACT certified "
+                    help="with --engine: EXACT certified "
                          "portfolio VaR/CVaR by distributed selection over "
                          "the book pipeline's per-path totals "
                          "(parallel/portfolio.exact_tail_book)")
@@ -1254,8 +1140,7 @@ def build_parser() -> argparse.ArgumentParser:
                          "(shared resample indices — the book co-moves "
                          "exactly as the joint history did; --bars-csv, "
                          "real volumes); heston correlates price AND vol "
-                         "shocks through beta (gated and --engine ladders, "
-                         "both backends)")
+                         "shocks through beta (gated and --engine ladders)")
     bk.add_argument("--bars-csv", default=None,
                     help="recorded o/h/l/c/v history for bootstrap samplers "
                          "(shared geometry, rebased per symbol)")
@@ -1285,14 +1170,12 @@ def build_parser() -> argparse.ArgumentParser:
                     help="per armed round, ALSO harvest this many gates-off "
                          "exploration paths and merge them before the model "
                          "refresh (fixes pure on-policy retraining's "
-                         "survivorship collapse; benchmarks/RESULTS.md)")
+                         "survivorship collapse)")
     fw.add_argument("--arm-policy-gate", action="store_true",
                     help="also arm the refreshed OnlinePolicy two-head gate "
                          "(chosen >= 0.60 vetoes everything when the win "
                          "rate is below 60%% -- the reference's "
                          "DISABLE_POLICY_GATE posture is the default)")
-    fw.add_argument("--backend", choices=["auto", "xla", "pallas"],
-                    default="auto")
     fw.set_defaults(fn=cmd_flywheel)
 
     rt = sub.add_parser("retrain")
@@ -1354,19 +1237,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def main(argv=None) -> int:
-    # Some boot shims force jax_platforms at interpreter start, trampling the
-    # JAX_PLATFORMS env contract; restore it so `JAX_PLATFORMS=cpu qmmx-tpu ...`
-    # behaves as documented.
-    import os
+    from ..backend import setup_compile_cache
 
-    plat = os.environ.get("JAX_PLATFORMS")
-    if plat:
-        import jax
-
-        try:
-            jax.config.update("jax_platforms", plat)
-        except Exception:
-            pass
+    setup_compile_cache()
     args = build_parser().parse_args(argv)
     return args.fn(args)
 

@@ -4,7 +4,7 @@ The reference's always-on window (qmmx_monolithic.py:2018-3351) shows a live
 candlestick chart with level overlays (:2391-2624), the open position and
 portfolio box (:3246-3303), the scrolling log (:3305-3345), and the QVoice
 narration panel (q_voice.py).  This module renders the same surfaces as a
-`rich` layout driven by the engine host's tick loop (`qmmx-tpu live
+`rich` layout driven by the engine host's tick loop (`qmmx live
 --dashboard`):
 
 ┌ header: symbol · price · tick # · last reason ───────────────────┐

@@ -1,1 +1,3 @@
-from . import analyzer, audit, chart, checkpoint, db, feed, portfolio, qvoice, trainstore  # noqa: F401
+# ``chart`` (matplotlib) is imported where it is used, so the main path needs
+# only JAX and NumPy.
+from . import analyzer, audit, checkpoint, db, feed, portfolio, qvoice, trainstore  # noqa: F401

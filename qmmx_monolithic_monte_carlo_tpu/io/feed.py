@@ -26,7 +26,7 @@ except Exception:  # pragma: no cover
 def _http_err(r) -> str:
     """Non-200 diagnostic for the status line / audit breadcrumb (original
     phrasing — the reference's error strings never feed the reason-code
-    contract, so nothing here needs string parity; VERDICT r4 hygiene)."""
+    contract, so nothing here needs string parity)."""
     return f"polygon returned {r.status_code}; body head: {r.text[:120]!r}"
 
 

@@ -5,13 +5,13 @@ close (qmmx_monolithic.py:1934-1945); labeled events retrain the OnlinePolicy
 every 2 minutes (:3753-3803) and the ``contact_events ⋈ trades`` join feeds
 the batch sklearn LR (:3833-3894).  Simulation/trading *produces the training
 data*.  At host scale that loop lives in ``io/trainstore.py``; this module is
-its scaled re-expression for the billion-path engine surfaces
-(sim/enginepath.py, ops/pallas_engine.py):
+its scaled re-expression for the billion-path engine surface
+(sim/enginepath.py):
 
 * every CLOSED simulated trade contributes one labeled example — label
   ``pnl > 0`` exactly as :1934-1945 — with features captured at its ENTRY bar;
 * the per-trade features are tiny and near-discrete, so the harvest is a set
-  of exact sufficient statistics small enough to ride in accumulator tiles:
+  of exact sufficient statistics small enough to ride in the scan carry:
 
   - **ML gate** (4-dim, :1457-1461): ``[lvl_kind, |level-stop|, touch_count,
     direction]``.  At entry ``|level-stop| == stop_padding`` (a config
@@ -33,12 +33,6 @@ its scaled re-expression for the billion-path engine surfaces
   (:3753-3803) as weighted logistic fits of the go_long / go_short heads on
   the bucket-mean feature rows (the skip and exit heads are never labeled by
   trades in the reference, so they are left untouched).
-
-The kernel (ops/pallas_engine.py, ``harvest=True``) accumulates the identical
-statistics in extra accumulator tiles and packs them into accumulator row
-``ROW_HARVEST``; ``EngineHarvest.from_acc_row`` unpacks it.  Exactness: under
-injected uniforms the kernel harvest equals the XLA harvest bitwise (counts)
-/ to reduction-order ulps (sums) — tests/test_harvest.py.
 """
 
 from __future__ import annotations
@@ -56,13 +50,6 @@ TC_CAP = 8            # touch-count clamp for the ML bucket axis (entries with
                       # tc >= overtouch_limit are gated; default limit is 4)
 ML_BUCKETS = TC_CAP * 4          # (tc, kind, glf) → tc*4 + kind*2 + glf
 POL_BUCKETS = 4                  # (glf, confl)    → glf*2 + confl
-
-# packed layout inside one (1, 128) accumulator row ('+' combine):
-#   cols 0..63   ml_counts[b, label] at col b*2 + label
-#   cols 64..71  pol_counts[b, label] at col 64 + b*2 + label
-#   cols 72..79  pol Σx1, same order
-#   cols 80..87  pol Σx6, same order
-HARVEST_COLS = 2 * ML_BUCKETS + 3 * 2 * POL_BUCKETS
 
 
 class EngineHarvest(NamedTuple):
@@ -91,32 +78,6 @@ class EngineHarvest(NamedTuple):
         """Total closed-trade examples harvested."""
         return jnp.sum(self.ml_counts, axis=(-2, -1))
 
-    def pack_row(self) -> jnp.ndarray:
-        """Pack into the (…, HARVEST_COLS) layout of the kernel's accumulator
-        row (padded to 128 by the caller)."""
-        lead = self.ml_counts.shape[:-2]
-        return jnp.concatenate([
-            self.ml_counts.reshape(lead + (2 * ML_BUCKETS,)),
-            self.pol_counts.reshape(lead + (2 * POL_BUCKETS,)),
-            self.pol_sum_x1.reshape(lead + (2 * POL_BUCKETS,)),
-            self.pol_sum_x6.reshape(lead + (2 * POL_BUCKETS,)),
-        ], axis=-1)
-
-    @classmethod
-    def from_acc_row(cls, row: jnp.ndarray) -> "EngineHarvest":
-        """Unpack from the kernel's (…, >=HARVEST_COLS) accumulator row."""
-        lead = row.shape[:-1]
-        o1 = 2 * ML_BUCKETS
-        o2 = o1 + 2 * POL_BUCKETS
-        o3 = o2 + 2 * POL_BUCKETS
-        o4 = o3 + 2 * POL_BUCKETS
-        return cls(
-            ml_counts=row[..., :o1].reshape(lead + (ML_BUCKETS, 2)),
-            pol_counts=row[..., o1:o2].reshape(lead + (POL_BUCKETS, 2)),
-            pol_sum_x1=row[..., o2:o3].reshape(lead + (POL_BUCKETS, 2)),
-            pol_sum_x6=row[..., o3:o4].reshape(lead + (POL_BUCKETS, 2)),
-        )
-
 
 def reweight_to_base(merged: EngineHarvest, base: EngineHarvest) -> EngineHarvest:
     """Importance-reweight a survivors+exploration merge to the BASE
@@ -129,8 +90,7 @@ def reweight_to_base(merged: EngineHarvest, base: EngineHarvest) -> EngineHarves
     distorts is the CROSS-bucket weighting the pooled IRLS fit sees: passed
     buckets carry survivor counts on top of their exploration counts, so a
     win-tilted stream inflates every shared coefficient and the refreshed
-    gate under-prunes (measured: benchmarks/RESULTS.md round-5 exploration
-    table).  Scaling each bucket's counts AND feature sums to the
+    gate under-prunes.  Scaling each bucket's counts AND feature sums to the
     exploration harvest's bucket totals restores the base frequencies while
     keeping the merged (higher-precision) per-bucket proportions and bucket-
     mean features — the importance-weighted refresh.  Buckets the

@@ -2,7 +2,7 @@
 
 The reference walks bars forward in Python to find which of stop/target is hit
 first (deterministic replay :3619-3628; Monte Carlo walk_outcome :3449-3486).  On
-TPU this becomes a vectorized first-True-index computation over a bar axis:
+an accelerator this becomes a vectorized first-True-index computation over a bar axis:
 
 * a *long* stop at ``s`` is hit at the first bar ``j`` with ``low[j] <= s``;
 * a *long* target at ``t`` at the first ``j`` with ``high[j] >= t``; shorts mirror.

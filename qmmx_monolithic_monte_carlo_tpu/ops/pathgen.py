@@ -29,8 +29,8 @@ the dead computation under jit.
 
 All samplers are shape-static and keyed per path via fold_in, so they vmap/shard
 cleanly over the path axis.  These are the pure-XLA reference implementations; the
-fused Pallas kernel (ops/pallas_mc.py) regenerates the same paths in VMEM without
-materializing them in HBM.
+fused first-contact kernel (ops/triton_paths.py) draws its GBM paths in registers
+from its own counter-based stream, without writing them to device memory.
 """
 
 from __future__ import annotations

@@ -3,23 +3,21 @@
 ``ops/guard.py`` and ``ops/touch.py`` mirror the reference classes for
 ARBITRARY tick/bar timing: ring buffers with write heads, recency ranks via
 argsort, time windows via timestamp filters.  Generated paths
-(sim/enginepath.py, ops/pallas_mc.py) emit exactly one bar per minute, which
-collapses all of that:
+(sim/enginepath.py) emit exactly one bar per minute, which collapses all of
+that:
 
 * recency rank == ring slot when slot 0 always holds the newest bar (rings
-  SHIFT each bar instead of rotating a head — a static concat in XLA, free
-  register renaming in a Pallas kernel);
+  SHIFT each bar instead of rotating a head — a static concat in XLA);
 * the guard's 60-minute window == the newest 61 slots;
 * edge taps age monotonically, so an 8-deep per-edge STACK (pushed only when
   a tap fires) answers the fatigue query: the k-th newest tap being inside
   the 30-minute window ⟺ >= k in-window taps exist, and the newest k slots
-  ARE the last-k in-window set (the fused kernel's 3-deep form,
-  ops/pallas_engine.py:15-17, generalized to fatigue_hits <= 8).
+  ARE the last-k in-window set (for fatigue_hits <= 8).
 
 Every function here is exactness-tested against its ops/guard.py //
 ops/touch.py counterpart on regularly-spaced sequences
-(tests/test_regular.py), so the scaled engine pipeline and the fused kernel
-inherit the reference semantics (qmmx_monolithic.py:1241-1356, :1112-1239)
+(tests/test_regular.py), so the scaled engine pipeline inherits the
+reference semantics (qmmx_monolithic.py:1241-1356, :1112-1239)
 through this layer.  All state arrays carry a leading batch axis [P, ...];
 timestamps are ``bar_index * 60_000`` ms.
 
@@ -31,7 +29,7 @@ internal window MAs (defined only at >= k bars, :1279-1283).  Both live here.
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..types import Levels
 from . import guard as G
@@ -45,10 +43,8 @@ GUARD_WINDOW_BARS = 61
 
 # edge-tap stack: taps push newest-first ONLY when one fires, so slot k-1
 # holding an in-window tap ⟺ >= k in-window taps exist (taps age
-# monotonically — the fused kernel's argument, ops/pallas_engine.py:15-17).
-# Depth 8 supports fatigue_hits <= 8 (reference default 3, :1127); the
-# round-4 diet bisect measured the old 32-slot one-push-per-bar rings'
-# per-bar cumsum at 28% of the whole engine pipeline.
+# monotonically).  Depth 8 supports fatigue_hits <= 8 (reference default 3,
+# :1127); it replaced 32-slot one-push-per-bar rings and their per-bar cumsum.
 TAP_STACK = 8
 TAP_NEVER = -(1 << 30)   # empty-slot timestamp sentinel (never in-window)
 
@@ -215,7 +211,7 @@ def guard_push(
 
 
 # --------------------------------------------------------------------------
-# lean guard: the fused kernel's windowed form, for the streaming XLA pipeline
+# lean guard: the windowed form, for the streaming XLA pipeline
 # --------------------------------------------------------------------------
 
 @struct.dataclass
@@ -223,8 +219,7 @@ class LeanGuardState:
     """Ring-free guard state for the scaled scan pipelines (ROADMAP r5 item 2:
     ``RegularGuardState`` carries 4×64-slot f32 rings ≈ 1 KB/path through every
     scan step; the decisions only need the 60-min window EXTREMES and volume
-    MAs the caller's bar ring already holds).  Mirrors the fused kernel's
-    layout (ops/pallas_engine.py run_low/run_high): running extremes when the
+    MAs the caller's bar ring already holds): running extremes when the
     whole horizon fits inside the window, 61-slot extreme rings otherwise
     (min/max are exactly order-free, so both forms are bitwise the window
     min/max).  ``run_low/run_high`` are f32[P] (running) or
@@ -408,7 +403,7 @@ def touch_register(
     # gathered state and scattered back through side_onehot — bitwise the
     # same per-(level, side) transitions as the two-sided [P, L, 2] form
     # (the inactive side's hit is identically false), at half the float
-    # work (round-5 XLA ladder diet; the kernel uses the same trick).
+    # work.
     ts_a = jnp.where(side_short, st.last_ts[:, :, 1], st.last_ts[:, :, 0])
     px_a = jnp.where(side_short, st.last_px[:, :, 1], st.last_px[:, :, 0])
     has_a = jnp.where(side_short, st.has_last[:, :, 1], st.has_last[:, :, 0])
@@ -438,8 +433,7 @@ def touch_register(
     ratio = jnp.where(ratio_ok, s_ma / jnp.maximum(l_ma, 1e-30), 1.0)
 
     # conditional stack push: the stack shifts only on edges that tapped
-    # (the old one-shift-per-bar 32-slot ring form cost a per-bar cumsum —
-    # 28% of the whole engine pipeline in the round-4 diet bisect)
+    # (the old one-shift-per-bar 32-slot ring form cost a per-bar cumsum)
     do_edge = jnp.stack([at_top, at_bot], axis=-1)          # [P, 2]
     new_ts = jnp.broadcast_to(jnp.asarray(ts, jnp.int32), do_edge.shape)
     new_ratio = jnp.broadcast_to(ratio[:, None], do_edge.shape)
@@ -466,12 +460,11 @@ def edge_fatigued(st: RegularTouchState, params: T.TouchMemoryParams, now_ms) ->
     launch (the old 32-slot ring form supported up to 31)."""
     now = jnp.asarray(now_ms, jnp.int32)
     try:
-        # static-k fast path (round-5 XLA ladder diet): with a concrete
+        # static-k fast path: with a concrete
         # fatigue_hits — always true outside jit; the reference pins 3 — the
         # kth-newest in-window test is ONE [P, 2] compare on slot k-1 and
         # the last-k mean a static slice sum, instead of [P, 2, TAP_STACK]
-        # one-hot reductions (edge_fatigued was 28% of the whole XLA engine
-        # pipeline in the round-4i bisect).  Bitwise: the masked sum padded
+        # one-hot reductions.  Bitwise: the masked sum padded
         # zeros beyond slot k-1; dropping exact +0.0 terms changes nothing.
         ks = int(params.fatigue_hits)
         kth_in = st.tap_ts[:, :, ks - 1] >= now - params.fatigue_window_ms
@@ -503,11 +496,10 @@ def touch_allow(
 ) -> tuple[jnp.ndarray, jnp.ndarray, jnp.ndarray]:
     """allow_trade_at (:1222-1239), batched select over (level, side).
 
-    One-hot masked reductions instead of ``st.count[arange(P), idx, side]``:
-    XLA lowers that per-path advanced-indexing gather catastrophically on TPU
-    — the round-4 diet bisect measured it at ~70% of the ENTIRE engine
-    pipeline (benchmarks/xla_diet_bisect.py ``no_tallow``).  Integer/bool
-    sums over a one-hot mask are bitwise the gathered element.
+    One-hot masked reductions instead of ``st.count[arange(P), idx, side]``,
+    a per-path advanced-indexing gather (the slow form where this pipeline was
+    first tuned; not yet measured on a GPU).  Integer/bool sums over a one-hot
+    mask are bitwise the gathered element.
 
     Requires ``level_idx`` in [0, L) and ``side`` in {0, 1}: an out-of-range
     index selects NOTHING (cnt=0, has=False → trade allowed), where a gather
@@ -516,8 +508,8 @@ def touch_allow(
     here."""
     l = st.count.shape[1]
     # side first ([P, L] selects), then the level one-hot — halves the
-    # reduction work vs the [P, L, 2] form (round-5 XLA ladder diet;
-    # integer/bool sums are order-exact, so this is bitwise-free)
+    # reduction work vs the [P, L, 2] form (integer/bool sums are
+    # order-exact, so this is bitwise-free)
     short = jnp.asarray(side, jnp.int32)[:, None] == 1          # [P, 1]
     cnt_s = jnp.where(short, st.count[:, :, 1], st.count[:, :, 0])
     ts_s = jnp.where(short, st.last_ts[:, :, 1], st.last_ts[:, :, 0])

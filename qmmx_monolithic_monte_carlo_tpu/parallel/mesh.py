@@ -1,12 +1,13 @@
 """Device-mesh scaling of the Monte Carlo reductions.
 
 The reference has no distributed execution (its MC is one serial Python loop,
-qmmx_monolithic.py:3491); the TPU rebuild scales through ``jax.sharding.Mesh`` +
+qmmx_monolithic.py:3491); the rebuild scales through ``jax.sharding.Mesh`` +
 ``shard_map``:
 
 * ``paths`` axis — each device generates ITS OWN path blocks from per-device
-  folded keys and accumulates a local ``PathStats``; one ``psum`` over ICI merges
-  them (the accumulator is associative by construction).
+  folded keys and accumulates a local ``PathStats``; one ``psum`` across the
+  devices merges them (the accumulator is associative by construction).  The
+  cards of one host are joined all to all, so the mesh is a flat 1-D axis.
 * ``symbols`` axis — independent (levels, params) universes vmap within a device
   and shard across the second mesh axis (BASELINE config #4).
 
@@ -133,242 +134,3 @@ def replicate(mesh: Mesh, tree):
     """Place a pytree fully-replicated on the mesh."""
     sharding = NamedSharding(mesh, P())
     return jax.tree_util.tree_map(lambda x: jax.device_put(x, sharding), tree)
-
-
-def sharded_mc_paths_pallas(
-    mesh: Mesh,
-    seed,
-    levels: Levels,
-    params: EngineParams,
-    *,
-    num_paths: int,
-    num_bars: int = 40,
-    s0: float = 100.0,
-    mu: float = 0.0,
-    sigma: float = 0.15,
-    dt: float = 1.0 / (390.0 * 252.0),
-    lanes: int | None = None,
-    gate=None,
-    engine: bool = False,
-    noise=None,
-    sampler: str = "gbm",     # gbm | bootstrap | block_bootstrap | heston
-    hist_bars=None,           # recorded o/h/l/c/v history (bootstrap family)
-    block_len: int = 10,
-    heston=None,              # dict(v0, kappa, theta, xi, rho)
-    axis: str = "paths",
-    interpret=False,
-    external_uniforms=None,   # f32[total_blocks, ...] (interpret tests)
-):
-    """FUSED-KERNEL path MC sharded over the mesh: every device runs the
-    Pallas kernel (first-contact / ``gate`` → gated lifecycle / ``engine`` →
-    FULL 12-gate engine) on its shard of the path budget and the associative
-    accumulators psum/pmin/pmax-merge over ICI.
-
-    Per-device PRNG seeding preserves the kernels' per-block scheme
-    (``seed + global_block_index``): device d's base seed is offset by its
-    global starting block, so the union of block seeds — and therefore counts
-    and histograms — is bitwise independent of the mesh shape (sums differ
-    only by psum reduction order).  Engine runs return (PathStats, skips,
-    escalations) with the diagnostics psum-merged; others return PathStats."""
-    from ..ops import pallas_mc as PK
-
-    if engine and gate is not None:
-        raise ValueError("pass either gate= or engine=True")
-    if engine:
-        from ..ops import guard as G
-        from ..ops import touch as T
-        from ..ops.pallas_engine import ENGINE_LANES, mc_paths_pallas_engine
-        lanes = ENGINE_LANES if lanes is None else lanes
-        # resolve the defaults OUTSIDE shard_map: inside the trace the
-        # wrapper's int()-validation of freshly-built params would see
-        # tracers; closured concrete params stay concrete
-        kern = partial(mc_paths_pallas_engine, noise=noise,
-                       sampler=sampler, hist_bars=hist_bars,
-                       block_len=block_len, heston=heston,
-                       touch_params=T.TouchMemoryParams.default(),
-                       guard_params=G.GuardParams.default())
-    elif gate is not None:
-        lanes = PK.GATED_LANES if lanes is None else lanes
-        kern = partial(PK.mc_paths_pallas_gated, gate=gate, noise=noise,
-                       sampler=sampler, hist_bars=hist_bars,
-                       block_len=block_len, heston=heston)
-    else:
-        lanes = PK.SINGLE_LANES if lanes is None else lanes
-        if sampler == "heston":
-            raise ValueError("the first-contact kernel runs gbm/bootstrap "
-                             "samplers only (no variance chain)")
-        kern = partial(PK.mc_paths_pallas, noise=noise,
-                       sampler=sampler, hist_bars=hist_bars,
-                       block_len=block_len)
-    block = (8 * lanes) if (engine or gate is not None) else lanes
-
-    n_dev = mesh.shape[axis]
-    if num_paths % (n_dev * block) != 0:
-        raise ValueError(
-            f"num_paths ({num_paths}) must divide evenly into "
-            f"{n_dev} devices × the kernel block ({block})")
-    per_dev = num_paths // n_dev
-    blocks_per_dev = per_dev // block
-
-    from jax import shard_map
-
-    @partial(
-        shard_map,
-        mesh=mesh,
-        in_specs=((P(axis),) if external_uniforms is None
-                  else (P(axis), P(axis))),
-        out_specs=P(),
-        check_vma=False,
-    )
-    def run(dev_seed, *maybe_u):
-        out = kern(
-            dev_seed[0], levels, params, num_paths=per_dev,
-            num_bars=num_bars, s0=s0, mu=mu, sigma=sigma, dt=dt, lanes=lanes,
-            interpret=interpret,
-            **({"external_uniforms": maybe_u[0]} if maybe_u else {}),
-        )
-        def merge(stats):
-            m = jax.tree_util.tree_map(lambda x: jax.lax.psum(x, axis), stats)
-            return m.replace(
-                min_r=jax.lax.pmin(stats.min_r, axis),
-                max_r=jax.lax.pmax(stats.max_r, axis),
-                max_dd=jax.lax.pmax(stats.max_dd, axis),
-            )
-        if engine:
-            stats, skips, escal = out
-            return (merge(stats), jax.lax.psum(skips, axis),
-                    jax.lax.psum(escal, axis))
-        return merge(out)
-
-    seeds = (jnp.asarray(seed, jnp.int32)
-             + jnp.arange(n_dev, dtype=jnp.int32) * jnp.int32(blocks_per_dev))
-    seeds = jax.device_put(seeds, NamedSharding(mesh, P(axis)))
-    args = (seeds,)
-    if external_uniforms is not None:
-        args = args + (jax.device_put(
-            jnp.asarray(external_uniforms, jnp.float32),
-            NamedSharding(mesh, P(axis))),)
-    return run(*args)
-
-
-def sharded_mc_paths_pallas_corr(
-    mesh: Mesh,
-    seed,
-    levels: Levels,        # batched [S, L]
-    params: EngineParams,
-    s0,                    # f32[S]
-    sigma,                 # f32[S]
-    beta,                  # f32[S] market loadings
-    weights,               # f32[S] book weights
-    *,
-    paths_per_symbol: int,
-    num_bars: int = 40,
-    dt: float = 1.0 / (390.0 * 252.0),
-    lanes: int | None = None,
-    engine: bool = False,
-    gate=None,
-    noise=None,
-    harvest: bool = False,    # engine only: psum-merged EngineHarvest
-    sampler: str = "gbm",     # full sampler set (JOINT recorded days /
-                              # correlated heston), both lifecycles
-    hist_bars=None,           # [S, H] histories, replicated to every device
-    block_len: int = 10,
-    heston=None,
-    antithetic: bool = False,
-    axis: str = "paths",
-    interpret=False,
-    external_uniforms=None,   # f32[S, total_blocks, rows, 8, lanes]
-    market_uniforms=None,     # f32[total_blocks, m*(W//2), 8, lanes]
-):
-    """Correlated BOOK MC sharded over the mesh: every device runs the fused
-    corr kernel (gated subset, or ``engine=True`` → the FULL 12-gate corr
-    kernel) on its shard of the per-symbol path budget; per-symbol AND
-    portfolio accumulators psum/pmin/pmax-merge over ICI.
-
-    Device d's launch passes ``block_offset = d * blocks_per_dev`` so the
-    kernels' (market, idio) PRNG salts hash GLOBAL block indices — counts
-    and histograms are bitwise independent of the mesh shape (sums differ
-    only by psum reduction order), the same property the per-block kernels
-    get from seed+block seeding."""
-    from ..ops import pallas_mc as PK
-    from ..ops import pallas_engine as PE
-
-    if engine and gate is not None:
-        raise ValueError("pass either gate= or engine=True")
-    if harvest and not engine:
-        raise ValueError("harvest=True needs engine=True")
-    if engine:
-        from ..ops import guard as G
-        from ..ops import touch as T
-        lanes = PE.ENGINE_LANES if lanes is None else lanes
-        kern = partial(PE.mc_paths_pallas_engine_corr, noise=noise,
-                       harvest=harvest, sampler=sampler, hist_bars=hist_bars,
-                       block_len=block_len, heston=heston,
-                       antithetic=antithetic,
-                       touch_params=T.TouchMemoryParams.default(),
-                       guard_params=G.GuardParams.default())
-        block = PE.ENGINE_SUB * lanes
-    else:
-        lanes = PK.GATED_LANES if lanes is None else lanes
-        kern = partial(PK.mc_paths_pallas_gated_corr, gate=gate, noise=noise,
-                       sampler=sampler, hist_bars=hist_bars,
-                       block_len=block_len, heston=heston,
-                       antithetic=antithetic)
-        block = PK.GATED_SUB * lanes
-
-    n_dev = mesh.shape[axis]
-    if paths_per_symbol % (n_dev * block) != 0:
-        raise ValueError(
-            f"paths_per_symbol ({paths_per_symbol}) must divide evenly into "
-            f"{n_dev} devices × the kernel block ({block})")
-    per_dev = paths_per_symbol // n_dev
-    blocks_per_dev = per_dev // block
-
-    from jax import shard_map
-
-    external_rng = external_uniforms is not None
-    in_specs = (P(axis),)
-    if external_rng:
-        in_specs = in_specs + (P(None, axis), P(axis))
-
-    @partial(shard_map, mesh=mesh, in_specs=in_specs, out_specs=P(),
-             check_vma=False)
-    def run(dev_off, *maybe_u):
-        out = kern(
-            seed, levels, params, s0, sigma, beta, weights,
-            paths_per_symbol=per_dev, num_bars=num_bars, dt=dt, lanes=lanes,
-            interpret=interpret, block_offset=dev_off[0],
-            **({"external_uniforms": maybe_u[0],
-                "market_uniforms": maybe_u[1]} if maybe_u else {}),
-        )
-
-        def merge(stats):
-            m = jax.tree_util.tree_map(lambda x: jax.lax.psum(x, axis), stats)
-            return m.replace(
-                min_r=jax.lax.pmin(stats.min_r, axis),
-                max_r=jax.lax.pmax(stats.max_r, axis),
-                max_dd=jax.lax.pmax(stats.max_dd, axis),
-            )
-        if engine:
-            sym, port, skips, escal = out[:4]
-            merged = (merge(sym), merge(port), jax.lax.psum(skips, axis),
-                      jax.lax.psum(escal, axis))
-            if harvest:
-                # every EngineHarvest leaf is a '+'-combined count/sum
-                merged = merged + (jax.tree_util.tree_map(
-                    lambda x: jax.lax.psum(x, axis), out[4]),)
-            return merged
-        sym, port = out
-        return merge(sym), merge(port)
-
-    offs = jnp.arange(n_dev, dtype=jnp.int32) * jnp.int32(blocks_per_dev)
-    offs = jax.device_put(offs, NamedSharding(mesh, P(axis)))
-    args = (offs,)
-    if external_rng:
-        args = args + (
-            jax.device_put(jnp.asarray(external_uniforms, jnp.float32),
-                           NamedSharding(mesh, P(None, axis))),
-            jax.device_put(jnp.asarray(market_uniforms, jnp.float32),
-                           NamedSharding(mesh, P(axis))),
-        )
-    return run(*args)

@@ -20,8 +20,8 @@ This module adds the scaled analog the reference never had:
   INTERIORS are microstructure, the factor model drives closes).  beta_s = 0
   recovers independent symbols; beta_s = 1 moves every symbol with the
   market.  The classic equity one-factor (beta) model — full correlation
-  matrices reduce to it for one dominant factor, and it is the form the
-  fused kernel can run without cross-symbol residency.
+  matrices reduce to it for one dominant factor, and it needs no
+  cross-symbol state beyond the shared draw.
 * **True portfolio aggregation** — per path, the weighted per-symbol equity
   CURVES sum into a portfolio curve; final portfolio R feeds a PathStats
   (histogram → portfolio VaR/CVaR), and the portfolio max drawdown is
@@ -31,9 +31,7 @@ This module adds the scaled analog the reference never had:
 
 Two lifecycle depths share the factor model: ``portfolio_mc`` runs the gated
 multi-trade state machine (sim/gatedpath.gated_path_replay — cooldown, touch
-budgets, confidence gate), the same semantics the fused gated kernel runs
-on-chip (ops/pallas_mc.mc_paths_pallas_gated_corr is exactness-tested against
-it under injected uniforms); ``portfolio_mc_engine`` runs the FULL 12-gate
+budgets, confidence gate); ``portfolio_mc_engine`` runs the FULL 12-gate
 engine ladder (sim/enginepath.engine_path_replay — guard regimes, touch
 memory, edge fatigue, breakout gate, volume veto, ML/blend/policy gates,
 target escalation) per symbol, with synthetic volumes coupled to the
@@ -411,8 +409,7 @@ def portfolio_mc_engine(
     in).  Defaults match ``mc_paths_engine`` (reference semantics
     qmmx_monolithic.py:3353-3538 lifted to the book level).
 
-    Samplers mirror the fused corr kernel (ops/pallas_engine
-    .mc_paths_pallas_engine_corr): ``"bootstrap"``/``"block_bootstrap"``
+    Samplers: ``"bootstrap"``/``"block_bootstrap"``
     replay JOINT recorded days — the per-bar resample indices are drawn
     ONCE per block from the market stream and shared by every symbol, each
     gathering its OWN [S, H] ``hist_bars`` row (real volumes ride along;

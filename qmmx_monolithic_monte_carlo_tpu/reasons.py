@@ -2,7 +2,7 @@
 
 The reference app (qmmx_monolithic.py:246-257) defines its reason codes as module-level
 string constants and threads them through ``evaluate_entry`` returns, ``policy_events``
-JSON payloads and ``audit_log`` rows.  The TPU rebuild keeps the exact string names as
+JSON payloads and ``audit_log`` rows.  The rebuild keeps the exact string names as
 the external contract (SQLite rows, analyzer output) but uses small integers on device
 so the gate stack can run branchless inside ``jit``/``lax.scan``.
 

@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..config import CompatFlags, EngineParams
 from ..engine.gates import TickInput, evaluate_entry

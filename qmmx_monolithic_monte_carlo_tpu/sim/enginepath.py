@@ -52,7 +52,7 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..config import EngineParams
 from ..engine import exits
@@ -310,8 +310,8 @@ def engine_path_replay(
         ).astype(jnp.int32)
         reason = first_fail(reason, direction == DIR_UNKNOWN, Reason.DIR_UNKNOWN)
         # 6) nearest level / TOO_FAR (:1543-1555) — winner's price/kind ride
-        # the running-min select (a [P]-indexed table gather is a TPU trap,
-        # ops/features.nearest_level_full)
+        # the running-min select in place of a [P]-indexed table gather
+        # (ops/features.nearest_level_full)
         idx, dist, lvlp, lvlk = F.nearest_level_full(levels, c)
         reason = first_fail(reason, dist > params.contact_prox, Reason.TOO_FAR)
 
@@ -330,8 +330,8 @@ def engine_path_replay(
         latch_new = jnp.logical_and(latch_new, levels.valid[None, :])
         c_counts = jnp.where(reached7[:, None], counts_new, c_counts)
         c_latch = jnp.where(reached7[:, None], latch_new, c_latch)
-        # one-hot select, not take_along_axis: per-path gathers are the TPU
-        # trap the diet bisect flagged (i32 masked sum == the gathered element)
+        # one-hot select in place of take_along_axis (i32 masked sum == the
+        # gathered element); whether a gather is cheaper on a GPU is unmeasured
         tc = jnp.sum(jnp.where(is_nearest, c_counts, 0), axis=1)
         reason = first_fail(reason, tc >= params.overtouch_limit,
                             Reason.LEVEL_OVERTOUCHED)
@@ -425,8 +425,7 @@ def engine_path_replay(
         enter = reason == Reason.OK
         # skip accounting happens OUTSIDE the scan: the per-bar reason codes
         # ride the scan outputs and one fused [W, P]-vs-codes histogram
-        # replaces 16 sequential [P] reductions in the loop body (12.5% of
-        # the whole pipeline, benchmarks/xla_diet_bisect.py round 5).
+        # replaces 16 sequential [P] reductions in the loop body.
         # Bitwise-free: per-block counts are integers < 2^24, so any f32
         # reduction association yields the same totals as the old per-bar
         # running adds; the cross-block merge order is unchanged.

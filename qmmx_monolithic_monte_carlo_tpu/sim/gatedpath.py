@@ -43,7 +43,7 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..config import EngineParams
 from ..ops import confidence as C
@@ -179,7 +179,7 @@ def gated_path_replay(
         )
 
         # touch latch (gate 7, :1557-1576): register on signal, de-duped by gap;
-        # one-hot scatter over the small static level axis (TPU-friendly)
+        # one-hot scatter over the small static level axis
         onehot = lvl_iota[None, :] == idx[:, None]                  # [P, L]
         tc_old = jnp.sum(jnp.where(onehot, touch, 0), axis=1)
         last_t = jnp.sum(jnp.where(onehot, last_tb, 0), axis=1)

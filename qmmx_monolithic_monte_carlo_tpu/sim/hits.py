@@ -4,10 +4,10 @@ The reference resolves a bar that touches BOTH barriers with a distance-
 weighted coin flip: ``p_target_first = up_span / (up_span + down_span)``
 computed from the bar's extremes around the entry price
 (qmmx_monolithic.py:3467-3480).  Every scaled lifecycle surface
-(sim/gatedpath.py, sim/enginepath.py) shares this exact block; the fused
-Pallas kernels re-express it with bool-algebra composition (Mosaic has no i1
-selects) but are exactness-tested against these pipelines under injected
-uniforms, so this helper is the single XLA-side source of truth.
+(sim/gatedpath.py, sim/enginepath.py) shares this exact block, so this helper
+is the single source of truth; the fused first-contact kernel
+(ops/triton_paths.py) re-expresses it per path and is pinned against a NumPy
+mirror of the same rule.
 """
 
 from __future__ import annotations

@@ -1,6 +1,6 @@
 """Monte Carlo robustness simulation (``simulate_monte_carlo``) — the north star.
 
-Re-expression of qmmx_monolithic.py:3353-3538 as a fully-batched TPU program:
+Re-expression of qmmx_monolithic.py:3353-3538 as a fully-batched device program:
 
 * candidates discovered once (proximity → side → touch-limit → optional gates,
   with the gate result allowed to override level/side, :3380-3442);
@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..config import CompatFlags, EngineParams
 from ..engine.state import EngineCarry, MlModel

@@ -22,7 +22,7 @@ from functools import partial
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..config import EngineParams
 from ..ops import features as F
@@ -31,7 +31,7 @@ from ..ops import pathgen as PG
 from ..types import OUTCOME_OPEN, OUTCOME_STOP, OUTCOME_TP, SIDE_LONG, SIDE_SHORT, Levels
 from ..utils import prng
 
-HIST_BINS = 128  # fills the full 128-lane accumulator row of the fused kernels
+HIST_BINS = 128  # R histogram bins of every PathStats
 HIST_LO = -1.5   # single-trade R range: stop = -1, tp = reward/risk (≈ 0.714)
 HIST_HI = 2.5
 # Multi-trade lifecycle totals routinely exceed the single-trade range (1.7
@@ -304,6 +304,11 @@ def sample_block(
     they resample (when ``hist_bars`` has them); GBM/Heston synthesize volume
     from ``volume_model`` (PG.VolumeModel; None → defaults).  Pipelines that
     never read ``PathBars.volume`` are unaffected — XLA prunes the dead draw."""
+    if sampler in ("bootstrap", "block_bootstrap"):
+        if hist_bars is None:
+            raise ValueError(f"sampler={sampler!r} requires hist_bars")
+        if antithetic:
+            raise ValueError("antithetic pairs the gbm and heston normals only")
     hist_volume = getattr(hist_bars, "volume", None)
     if sampler == "gbm":
         return PG.gbm_paths(

@@ -12,7 +12,7 @@ Carlo's coin flip.  Exit price is the stop/target level itself, not the bar pric
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..config import CompatFlags, EngineParams
 from ..engine.state import EngineCarry, MlModel

@@ -13,7 +13,7 @@ Exact re-expression of the reference's summary math:
 from __future__ import annotations
 
 import jax.numpy as jnp
-from flax import struct
+from ..utils import struct
 
 from ..types import OUTCOME_OPEN, OUTCOME_STOP, OUTCOME_TP
 

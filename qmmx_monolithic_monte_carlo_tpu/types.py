@@ -1,4 +1,4 @@
-"""Core data types (pytrees) for the TPU-native QMMX framework.
+"""Core data types (pytrees) for the QMMX framework.
 
 Everything numerical is structure-of-arrays with **static shapes** so it can live on
 device, flow through ``jit``/``vmap``/``lax.scan`` and shard over a ``jax.sharding.Mesh``:
@@ -25,7 +25,7 @@ from typing import Any
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
+from .utils import struct
 
 # Level colors in the reference GUI (qmmx_monolithic.py:2712-2754: Blue/Orange/Black/Teal).
 COLORS = ("blue", "orange", "black", "teal")

@@ -18,7 +18,7 @@ It is deliberately scalar and loopy, built on the semantics oracles
 vectorized ops are unit-tested against, with float32 mirrored at the decision
 boundaries the repo convention requires (distances, confidence, the tie coin).
 Escalation interacting with intrabar extremes and the tie coin is exactly the
-surface VERDICT r3 flagged as untested — this oracle closes it.
+surface no other oracle covers — this oracle closes it.
 """
 
 from __future__ import annotations

@@ -1,41 +1,22 @@
-"""Samplers through the correlated-book FULL-ENGINE kernel.
+"""Samplers through the correlated-book XLA pipelines (parallel/portfolio.py).
 
-Round 4d gave the book the fused 12-gate corr kernel; this closes the
-sampler envelope on it: ``bootstrap``/``block_bootstrap`` replay JOINT
-recorded days (the per-bar resample indices come from the shared MARKET
-stream, so every book member replays the SAME historical bar each step —
-the book's cross-sectional co-movement is exactly what the joint history
-had; the reference MC replays one symbol's recorded bars,
-qmmx_monolithic.py:3353-3538, and a book replays the joint days), and
-``heston`` correlates BOTH the price shock and the variance shock through
-the same beta loading (a market selloff raises every member's vol).
-
-Under injected uniforms the kernel must match per-symbol
-sim/enginepath.engine_path_replay on bars reconstructed from the same
-draws, and the book combine (weighted curves -> final R histogram + TRUE
-time-tracked portfolio drawdown) must match the host-side fold.
+``bootstrap``/``block_bootstrap`` replay JOINT recorded days: the per-bar
+resample indices come from the shared MARKET stream, so every book member
+replays the SAME historical bar each step — the book's cross-sectional
+co-movement is exactly what the joint history had (the reference MC replays
+one symbol's recorded bars, qmmx_monolithic.py:3353-3538; a book replays the
+joint days).  ``heston`` correlates BOTH the price shock and the variance
+shock through the same beta loading.
 """
 
 import jax
-import jax.numpy as jnp
 import numpy as np
 import pytest
 
 from qmmx_monolithic_monte_carlo_tpu.config import EngineParams
-from qmmx_monolithic_monte_carlo_tpu.ops import pathgen as PG
-from qmmx_monolithic_monte_carlo_tpu.ops.pallas_engine import (
-    BOOT_DRAWS_PER_PAIR,
-    ENGINE_SUB,
-    HESTON_DRAWS_PER_PAIR,
-    _heston_tuple,
-    mc_paths_pallas_engine_corr,
-)
 from qmmx_monolithic_monte_carlo_tpu.parallel import universe as U
-from qmmx_monolithic_monte_carlo_tpu.sim import enginepath as EP
-from qmmx_monolithic_monte_carlo_tpu.sim.pathsim import PathStats
 
-from .test_engine_bootstrap import _stacked_histories
-from .test_pallas_engine import DT, LANES, VM
+from .samples import stacked_histories as _stacked_histories
 
 ROWS2 = [
     [{"color": "blue", "type": "solid", "index": 0, "price": 100.0},
@@ -46,341 +27,7 @@ S0 = np.array([100.0, 50.0], np.float32)
 SG = np.array([0.3, 0.4], np.float32)      # unused by bootstrap bars
 BETA = np.array([0.8, 0.6], np.float32)
 WTS = np.array([0.5, 0.5], np.float32)
-
-
-def _corr_boot_bars(u_s, um, hist_s, w, lanes, s0, block_len=None):
-    """Mirror the corr kernel's JOINT-recorded-day stream: resample indices
-    from the shared market rows (2 per double-bar step), ties from the
-    symbol's idio rows 0/1, channel gathers over the symbol's OWN tables."""
-    logc, logh, logl, logo, vol = PG.bootstrap_tables(
-        hist_s.open, hist_s.high, hist_s.low, hist_s.close, hist_s.volume)
-    hf = jnp.float32(logc.shape[0])
-    stride = BOOT_DRAWS_PER_PAIR
-    log_s = jnp.full((ENGINE_SUB, lanes), jnp.float32(np.log(s0)))
-    cur = jnp.zeros((ENGINE_SUB, lanes), jnp.float32)
-    opens, closes, highs, lows, vols, ties = [], [], [], [], [], []
-    for t in range(w):
-        t2, half = divmod(t, 2)
-        uu = jnp.asarray(um[2 * t2 + half], jnp.float32)     # MARKET index
-        tie = jnp.asarray(u_s[stride * t2 + half], jnp.float32)
-        if block_len is None:
-            idx = jnp.minimum(jnp.floor(uu * hf), hf - 1.0).astype(jnp.int32)
-        else:
-            bl = jnp.float32(block_len)
-            off = t % block_len
-            if off == 0:
-                cur = jnp.minimum(jnp.floor(uu * (hf - bl)), hf - bl - 1.0)
-            idx = (cur + jnp.float32(off)).astype(jnp.int32)
-        opens.append(jnp.exp(log_s + logo[idx]))
-        closes.append(jnp.exp(log_s + logc[idx]))
-        highs.append(jnp.exp(log_s + logh[idx]))
-        lows.append(jnp.exp(log_s + logl[idx]))
-        vols.append(vol[idx])
-        ties.append(tie)
-        log_s = log_s + logc[idx]
-
-    def flat(rows):
-        return jnp.stack(rows, axis=-1).reshape(ENGINE_SUB * lanes, w)
-
-    return PG.PathBars(open=flat(opens), high=flat(highs), low=flat(lows),
-                       close=flat(closes), volume=flat(vols)), flat(ties)
-
-
-def _corr_heston_bars(u_s, um, hp, beta, w, lanes, vm=VM, s0=100.0):
-    """Mirror the corr kernel's Heston stream: market rows are 4 per
-    double-bar step (price pair, then variance pair); both the price shock
-    and the variance shock mix ``beta * z_mkt + perp * z_idio``."""
-    v0, kappa, theta, xi, rho, mu, dt = hp
-    rho_perp = float(np.sqrt(max(0.0, 1.0 - rho * rho)))
-    perp = jnp.float32(np.sqrt(max(0.0, 1.0 - beta * beta)))
-    beta = jnp.float32(beta)
-    stride = HESTON_DRAWS_PER_PAIR
-    dtf = jnp.float32(dt)
-    mean_abs = jnp.float32(np.sqrt(2.0 / np.pi))
-    sd_abs = jnp.float32(np.sqrt(1.0 - 2.0 / np.pi))
-    log_s = jnp.full((ENGINE_SUB, lanes), jnp.float32(np.log(s0)))
-    v = jnp.full((ENGINE_SUB, lanes), jnp.float32(v0))
-    two_pi = 6.283185307179586
-    opens, closes, highs, lows, vols, ties = [], [], [], [], [], []
-    for t2 in range(w // 2):
-        blk = lambda k: jnp.asarray(u_s[stride * t2 + k], jnp.float32)
-        mblk = lambda k: jnp.asarray(um[4 * t2 + k], jnp.float32)
-        mrad = jnp.sqrt(-2.0 * jnp.log(mblk(0)))
-        mang = two_pi * mblk(1)
-        zm = (mrad * jnp.cos(mang), mrad * jnp.sin(mang))
-        qmrad = jnp.sqrt(-2.0 * jnp.log(mblk(2)))
-        qmang = two_pi * mblk(3)
-        zqm = (qmrad * jnp.cos(qmang), qmrad * jnp.sin(qmang))
-        rad = jnp.sqrt(-2.0 * jnp.log(blk(0)))
-        ang = two_pi * blk(1)
-        ze = (rad * jnp.cos(ang), rad * jnp.sin(ang))
-        z_pair = tuple(beta * zm[i] + perp * ze[i] for i in range(2))
-        vrad = jnp.sqrt(-2.0 * jnp.log(blk(2)))
-        vang = two_pi * blk(3)
-        zv_pair = (vrad * jnp.cos(vang), vrad * jnp.sin(vang))
-        qrad = jnp.sqrt(-2.0 * jnp.log(blk(4)))
-        qang = two_pi * blk(5)
-        zqe = (qrad * jnp.cos(qang), qrad * jnp.sin(qang))
-        zq_pair = tuple(beta * zqm[i] + perp * zqe[i] for i in range(2))
-        for half in range(2):
-            t = 2 * t2 + half
-            z, zv, zq = z_pair[half], zv_pair[half], zq_pair[half]
-            u3 = blk(6 + 3 * half)
-            u4 = blk(7 + 3 * half)
-            tie = blk(8 + 3 * half)
-            v_pos = jnp.maximum(v, 0.0)
-            sig_bar = jnp.sqrt(v_pos * dtf)
-            log_open = log_s
-            log_close = (log_s + (jnp.float32(mu) - 0.5 * v_pos) * dtf
-                         + sig_bar * z)
-            sig2dt = v_pos * dtf
-            v = (v + jnp.float32(kappa) * (jnp.float32(theta) - v_pos) * dtf
-                 + jnp.float32(xi) * sig_bar
-                 * (jnp.float32(rho) * z + jnp.float32(rho_perp) * zq))
-            d2 = (log_close - log_open) ** 2
-            highs.append(jnp.exp(0.5 * (
-                log_open + log_close
-                + jnp.sqrt(d2 - 2.0 * sig2dt * jnp.log(u3)))))
-            lows.append(jnp.exp(0.5 * (
-                log_open + log_close
-                - jnp.sqrt(d2 - 2.0 * sig2dt * jnp.log(u4)))))
-            opens.append(jnp.exp(log_open))
-            closes.append(jnp.exp(log_close))
-            ties.append(tie)
-            m = jnp.mod(jnp.float32(vm.open_minute) + jnp.float32(t),
-                        jnp.float32(vm.day_minutes))
-            x = 2.0 * m / jnp.float32(max(vm.day_minutes - 1, 1)) - 1.0
-            shape = 1.0 + jnp.float32(vm.u_amp) * (x * x
-                                                   - jnp.float32(1.0 / 3.0))
-            noise = jnp.exp(jnp.float32(vm.noise_sigma) * zv
-                            - 0.5 * jnp.float32(vm.noise_sigma) ** 2)
-            vol = jnp.float32(vm.base) * shape * noise
-            vol = vol * (1.0 + jnp.float32(vm.ret_coupling)
-                         * ((jnp.abs(z) - mean_abs) / sd_abs))
-            vols.append(jnp.maximum(vol, jnp.float32(0.05 * vm.base)))
-            log_s = log_close
-
-    def flat(rows):
-        return jnp.stack(rows, axis=-1).reshape(ENGINE_SUB * lanes, w)
-
-    return PG.PathBars(open=flat(opens), high=flat(highs), low=flat(lows),
-                       close=flat(closes), volume=flat(vols)), flat(ties)
-
-
-def _check_book(sym, port, skips, escal, per_symbol, w, n, wts):
-    """Fold per-symbol engine_path_replay outputs into the book and compare
-    every count/histogram with the kernel's accumulators."""
-    port_curve = jnp.zeros((w, n), jnp.float32)
-    tr = jnp.zeros((n,), jnp.int32)
-    wi, lo = tr, tr
-    opn = jnp.zeros((n,), bool)
-    for s, (out, curve) in enumerate(per_symbol):
-        stats = PathStats.from_lifecycle(
-            equity=out.equity, trades=out.trades, wins=out.wins,
-            losses=out.losses, open_at_end=out.open_at_end,
-            max_dd=out.max_dd)
-        for fld in ("n", "n_entered", "n_tp", "n_stop", "n_open",
-                    "sum_trades"):
-            assert float(getattr(sym, fld)[s]) == float(getattr(stats, fld)), (
-                s, fld)
-        np.testing.assert_array_equal(
-            np.asarray(skips[s]), np.asarray(out.skip_counts))
-        assert float(escal[s]) == float(jnp.sum(out.escalations))
-        np.testing.assert_array_equal(
-            np.asarray(sym.hist[s]), np.asarray(stats.hist))
-        port_curve = port_curve + wts[s] * curve
-        tr = tr + out.trades
-        wi = wi + out.wins
-        lo = lo + out.losses
-        opn = jnp.logical_or(opn, out.open_at_end)
-    final = port_curve[-1]
-    peak = jax.lax.cummax(jnp.maximum(port_curve, 0.0), axis=0)
-    pdd = jnp.max(peak - port_curve, axis=0)
-    pstats = PathStats.from_lifecycle(
-        equity=final, trades=tr, wins=wi, losses=lo, open_at_end=opn,
-        max_dd=pdd)
-    for fld in ("n", "n_entered", "n_tp", "n_stop", "n_open", "sum_trades"):
-        assert float(getattr(port, fld)) == float(getattr(pstats, fld)), fld
-    assert float(port.sum_r) == pytest.approx(float(pstats.sum_r), rel=1e-4,
-                                              abs=1e-4)
-    assert float(port.max_dd) == pytest.approx(
-        float(pstats.max_dd), rel=1e-4, abs=1e-5)
-    np.testing.assert_array_equal(
-        np.asarray(port.hist), np.asarray(pstats.hist))
-
-
-@pytest.mark.slow
-def test_engine_corr_bootstrap_joint_days_exact():
-    """JOINT recorded days: fused corr bootstrap == per-symbol replay of
-    bars built from the SHARED market resample indices over each symbol's
-    OWN history, plus the exact book combine."""
-    w, lanes = 16, 128
-    n = ENGINE_SUB * lanes
-    lv = U.stack_levels(ROWS2, max_levels=4)
-    hist2 = _stacked_histories([11, 23], 180)
-    params = EngineParams.default(stop_padding=0.25, tp_padding=0.18)
-    rng = np.random.default_rng(41)
-    u = rng.uniform(1e-6, 1.0,
-                    (2, 1, BOOT_DRAWS_PER_PAIR * (w // 2), ENGINE_SUB, lanes)
-                    ).astype(np.float32)
-    um = rng.uniform(1e-6, 1.0, (1, 2 * (w // 2), ENGINE_SUB, lanes)
-                     ).astype(np.float32)
-
-    sym, port, skips, escal = mc_paths_pallas_engine_corr(
-        0, lv, params, S0, SG, BETA, WTS,
-        paths_per_symbol=n, num_bars=w, lanes=lanes,
-        sampler="bootstrap", hist_bars=hist2,
-        interpret=True, external_uniforms=u, market_uniforms=um)
-
-    per_symbol = []
-    for s in range(2):
-        lv_s = jax.tree_util.tree_map(lambda x: x[s], lv)
-        hist_s = jax.tree_util.tree_map(lambda x: x[s], hist2)
-        bars, tie = _corr_boot_bars(u[s, 0], um[0], hist_s, w, lanes,
-                                    float(S0[s]))
-        per_symbol.append(EP.engine_path_replay(bars, lv_s, params, tie,
-                                                return_curve=True))
-    _check_book(sym, port, skips, escal, per_symbol, w, n, WTS)
-    assert float(sym.n_entered[0] + sym.n_entered[1]) > 0
-
-
-@pytest.mark.slow
-def test_engine_corr_bootstrap_indices_are_shared():
-    """Two book members with the SAME history and s0 replay identical joint
-    days: their per-symbol stats are identical (the indices come from the
-    market stream, not from per-symbol draws)."""
-    w, lanes = 12, 128
-    n = ENGINE_SUB * lanes
-    rows = [ROWS2[0], ROWS2[0]]
-    lv = U.stack_levels(rows, max_levels=4)
-    hist2 = _stacked_histories([7, 7], 160)
-    params = EngineParams.default(stop_padding=0.25, tp_padding=0.18)
-    rng = np.random.default_rng(43)
-    # identical idio tensors too: only the market stream should matter for
-    # the bar geometry; ties ride idio so keep them equal as well
-    u1 = rng.uniform(1e-6, 1.0,
-                     (1, 1, BOOT_DRAWS_PER_PAIR * (w // 2), ENGINE_SUB,
-                      lanes)).astype(np.float32)
-    u = np.concatenate([u1, u1], axis=0)
-    um = rng.uniform(1e-6, 1.0, (1, 2 * (w // 2), ENGINE_SUB, lanes)
-                     ).astype(np.float32)
-    sym, port, skips, escal = mc_paths_pallas_engine_corr(
-        0, lv, params, np.array([100.0, 100.0], np.float32), SG,
-        BETA, WTS, paths_per_symbol=n, num_bars=w, lanes=lanes,
-        sampler="bootstrap", hist_bars=hist2,
-        interpret=True, external_uniforms=u, market_uniforms=um)
-    for fld in ("n_entered", "n_tp", "n_stop", "sum_trades", "sum_r"):
-        assert float(getattr(sym, fld)[0]) == float(getattr(sym, fld)[1]), fld
-    np.testing.assert_array_equal(np.asarray(skips[0]), np.asarray(skips[1]))
-
-
-@pytest.mark.slow
-def test_engine_corr_block_bootstrap_exact():
-    """Contiguous JOINT recorded runs: shared market block starts, each
-    symbol's own channel gathers; exact vs the per-symbol replay + book
-    combine."""
-    w, lanes, bl = 12, 128, 4
-    n = ENGINE_SUB * lanes
-    lv = U.stack_levels(ROWS2, max_levels=4)
-    hist2 = _stacked_histories([11, 23], 180)
-    params = EngineParams.default(stop_padding=0.25, tp_padding=0.18)
-    rng = np.random.default_rng(47)
-    u = rng.uniform(1e-6, 1.0,
-                    (2, 1, BOOT_DRAWS_PER_PAIR * (w // 2), ENGINE_SUB, lanes)
-                    ).astype(np.float32)
-    um = rng.uniform(1e-6, 1.0, (1, 2 * (w // 2), ENGINE_SUB, lanes)
-                     ).astype(np.float32)
-
-    sym, port, skips, escal = mc_paths_pallas_engine_corr(
-        0, lv, params, S0, SG, BETA, WTS,
-        paths_per_symbol=n, num_bars=w, lanes=lanes,
-        sampler="block_bootstrap", hist_bars=hist2, block_len=bl,
-        interpret=True, external_uniforms=u, market_uniforms=um)
-
-    per_symbol = []
-    for s in range(2):
-        lv_s = jax.tree_util.tree_map(lambda x: x[s], lv)
-        hist_s = jax.tree_util.tree_map(lambda x: x[s], hist2)
-        bars, tie = _corr_boot_bars(u[s, 0], um[0], hist_s, w, lanes,
-                                    float(S0[s]), block_len=bl)
-        per_symbol.append(EP.engine_path_replay(bars, lv_s, params, tie,
-                                                return_curve=True))
-    _check_book(sym, port, skips, escal, per_symbol, w, n, WTS)
-
-
 HPARAMS = dict(v0=0.09, kappa=2.0, theta=0.05, xi=0.9, rho=-0.6)
-
-
-@pytest.mark.slow
-def test_engine_corr_heston_exact():
-    """Correlated Heston book: price AND variance shocks mix the market
-    factor through beta; exact vs per-symbol replay + book combine."""
-    w, lanes = 16, 128
-    n = ENGINE_SUB * lanes
-    lv = U.stack_levels(ROWS2, max_levels=4)
-    params = EngineParams.default(stop_padding=0.25, tp_padding=0.18)
-    hp = _heston_tuple(HPARAMS, 0.0, DT)
-    rng = np.random.default_rng(53)
-    u = rng.uniform(1e-6, 1.0,
-                    (2, 1, HESTON_DRAWS_PER_PAIR * (w // 2), ENGINE_SUB,
-                     lanes)).astype(np.float32)
-    um = rng.uniform(1e-6, 1.0, (1, 4 * (w // 2), ENGINE_SUB, lanes)
-                     ).astype(np.float32)
-
-    sym, port, skips, escal = mc_paths_pallas_engine_corr(
-        0, lv, params, S0, SG, BETA, WTS,
-        paths_per_symbol=n, num_bars=w, lanes=lanes,
-        sampler="heston", heston=HPARAMS,
-        interpret=True, external_uniforms=u, market_uniforms=um)
-
-    per_symbol = []
-    for s in range(2):
-        lv_s = jax.tree_util.tree_map(lambda x: x[s], lv)
-        bars, tie = _corr_heston_bars(u[s, 0], um[0], hp, float(BETA[s]),
-                                      w, lanes, s0=float(S0[s]))
-        per_symbol.append(EP.engine_path_replay(bars, lv_s, params, tie,
-                                                return_curve=True))
-    _check_book(sym, port, skips, escal, per_symbol, w, n, WTS)
-    assert float(sym.n_entered[0] + sym.n_entered[1]) > 0
-
-
-@pytest.mark.slow
-def test_engine_corr_bootstrap_harvest_matches_replay():
-    """The book flywheel rides recorded days too: harvest=True under the
-    corr bootstrap kernel equals per-symbol replay harvests bitwise on
-    counts."""
-    from qmmx_monolithic_monte_carlo_tpu.models import harvest as HV
-
-    w, lanes = 12, 128
-    n = ENGINE_SUB * lanes
-    lv = U.stack_levels(ROWS2, max_levels=4)
-    hist2 = _stacked_histories([11, 23], 160)
-    params = EngineParams.default(stop_padding=0.15, tp_padding=0.10)
-    rng = np.random.default_rng(59)
-    u = rng.uniform(1e-6, 1.0,
-                    (2, 1, BOOT_DRAWS_PER_PAIR * (w // 2), ENGINE_SUB, lanes)
-                    ).astype(np.float32)
-    um = rng.uniform(1e-6, 1.0, (1, 2 * (w // 2), ENGINE_SUB, lanes)
-                     ).astype(np.float32)
-
-    sym, port, skips, escal, hv = mc_paths_pallas_engine_corr(
-        0, lv, params, S0, SG, BETA, WTS,
-        paths_per_symbol=n, num_bars=w, lanes=lanes, harvest=True,
-        sampler="bootstrap", hist_bars=hist2,
-        interpret=True, external_uniforms=u, market_uniforms=um)
-    assert hv.ml_counts.shape == (2, HV.ML_BUCKETS, 2)
-    for s in range(2):
-        lv_s = jax.tree_util.tree_map(lambda x: x[s], lv)
-        hist_s = jax.tree_util.tree_map(lambda x: x[s], hist2)
-        bars, tie = _corr_boot_bars(u[s, 0], um[0], hist_s, w, lanes,
-                                    float(S0[s]))
-        out = EP.engine_path_replay(bars, lv_s, params, tie, harvest=True)
-        want = out.harvest
-        np.testing.assert_array_equal(np.asarray(hv.ml_counts[s]),
-                                      np.asarray(want.ml_counts))
-        np.testing.assert_array_equal(np.asarray(hv.pol_counts[s]),
-                                      np.asarray(want.pol_counts))
-        assert float(hv.n_labeled[s]) == float(sym.n_tp[s] + sym.n_stop[s])
 
 
 def test_portfolio_mc_engine_bootstrap_joint_days():
@@ -436,48 +83,6 @@ def test_portfolio_mc_engine_block_bootstrap_and_heston_run():
             or float(h_port.sum_trades) != float(g_port.sum_trades))
 
 
-@pytest.mark.slow
-def test_sharded_corr_bootstrap_matches_single_device():
-    """JOINT recorded days ride the mesh: a 2-device shard_map book run
-    under injected uniforms equals the single-device corr bootstrap kernel
-    exactly on counts and histograms, per symbol AND for the book."""
-    from qmmx_monolithic_monte_carlo_tpu.parallel import mesh as PM
-
-    w, lanes = 12, 128
-    lv = U.stack_levels(ROWS2, max_levels=4)
-    hist2 = _stacked_histories([11, 23], 160)
-    params = EngineParams.default(stop_padding=0.25, tp_padding=0.18)
-    mesh = PM.make_mesh(2)
-    rng = np.random.default_rng(61)
-    u = rng.uniform(1e-6, 1.0,
-                    (2, 2, BOOT_DRAWS_PER_PAIR * (w // 2), ENGINE_SUB, lanes)
-                    ).astype(np.float32)
-    um = rng.uniform(1e-6, 1.0, (2, 2 * (w // 2), ENGINE_SUB, lanes)
-                     ).astype(np.float32)
-    n = 2 * ENGINE_SUB * lanes
-    sh_sym, sh_port, sh_skips, sh_escal = PM.sharded_mc_paths_pallas_corr(
-        mesh, 0, lv, params, S0, SG, BETA, WTS,
-        paths_per_symbol=n, num_bars=w, lanes=lanes, engine=True,
-        sampler="bootstrap", hist_bars=hist2,
-        interpret=True, external_uniforms=u, market_uniforms=um)
-    sym, port, skips, escal = mc_paths_pallas_engine_corr(
-        0, lv, params, S0, SG, BETA, WTS,
-        paths_per_symbol=n, num_bars=w, lanes=lanes,
-        sampler="bootstrap", hist_bars=hist2,
-        interpret=True, external_uniforms=u, market_uniforms=um)
-    for f in ("n", "n_entered", "n_tp", "n_stop", "n_open", "sum_trades"):
-        np.testing.assert_array_equal(
-            np.asarray(getattr(sh_sym, f)), np.asarray(getattr(sym, f)), f)
-        np.testing.assert_array_equal(
-            np.asarray(getattr(sh_port, f)), np.asarray(getattr(port, f)), f)
-    np.testing.assert_array_equal(np.asarray(sh_sym.hist),
-                                  np.asarray(sym.hist))
-    np.testing.assert_array_equal(np.asarray(sh_port.hist),
-                                  np.asarray(port.hist))
-    np.testing.assert_array_equal(np.asarray(sh_skips), np.asarray(skips))
-    np.testing.assert_array_equal(np.asarray(sh_escal), np.asarray(escal))
-
-
 def test_portfolio_mc_engine_sampler_validation():
     from qmmx_monolithic_monte_carlo_tpu.parallel.portfolio import (
         portfolio_mc_engine,
@@ -496,317 +101,28 @@ def test_portfolio_mc_engine_sampler_validation():
             sampler="cauchy")
 
 
-def test_engine_corr_sampler_validation():
-    lv = U.stack_levels(ROWS2, max_levels=4)
-    n = ENGINE_SUB * 128
-    with pytest.raises(ValueError, match="hist_bars"):
-        mc_paths_pallas_engine_corr(
-            0, lv, EngineParams.default(), S0, SG, BETA, WTS,
-            paths_per_symbol=n, num_bars=8, lanes=128, sampler="bootstrap")
-    with pytest.raises(ValueError, match="sampler"):
-        mc_paths_pallas_engine_corr(
-            0, lv, EngineParams.default(), S0, SG, BETA, WTS,
-            paths_per_symbol=n, num_bars=8, lanes=128, sampler="cauchy")
-
-
-# ---- gated corr samplers ---------------------------------------------------
-# The fast book path (139M sym-paths/s on gbm) runs the same sampler set:
-# mirrors of the gated kernel's draw layouts with the market/idio split.
-
-def _gated_corr_boot_bars(u_s, um, hist_s, w, lanes, s0, block_len=None):
-    """Gated corr-kernel mirror: JOINT indices from the market rows (2 per
-    double-bar step), ties from idio rows 0/1 (stride 4)."""
-    from qmmx_monolithic_monte_carlo_tpu.ops.pallas_mc import (
-        GATED_SUB,
-        _gated_stride,
-    )
-
-    logc, logh, logl, logo, _vol = PG.bootstrap_tables(
-        hist_s.open, hist_s.high, hist_s.low, hist_s.close, hist_s.volume)
-    hf = jnp.float32(logc.shape[0])
-    stride = _gated_stride("bootstrap", False)
-    log_s = jnp.full((GATED_SUB, lanes), jnp.float32(np.log(s0)))
-    cur = jnp.zeros((GATED_SUB, lanes), jnp.float32)
-    opens, closes, highs, lows, ties = [], [], [], [], []
-    for t in range(w):
-        t2, half = divmod(t, 2)
-        uu = jnp.asarray(um[2 * t2 + half], jnp.float32)     # MARKET index
-        tie = jnp.asarray(u_s[stride * t2 + half], jnp.float32)
-        if block_len is None:
-            idx = jnp.minimum(jnp.floor(uu * hf), hf - 1.0).astype(jnp.int32)
-        else:
-            bl = jnp.float32(block_len)
-            off = t % block_len
-            if off == 0:
-                cur = jnp.minimum(jnp.floor(uu * (hf - bl)), hf - bl - 1.0)
-            idx = (cur + jnp.float32(off)).astype(jnp.int32)
-        opens.append(jnp.exp(log_s + logo[idx]))
-        closes.append(jnp.exp(log_s + logc[idx]))
-        highs.append(jnp.exp(log_s + logh[idx]))
-        lows.append(jnp.exp(log_s + logl[idx]))
-        ties.append(tie)
-        log_s = log_s + logc[idx]
-
-    def flat(rows):
-        return jnp.stack(rows, axis=-1).reshape(GATED_SUB * lanes, w)
-
-    return PG.PathBars(open=flat(opens), high=flat(highs), low=flat(lows),
-                       close=flat(closes), volume=None), flat(ties)
-
-
-def _gated_corr_heston_bars(u_s, um, hp, beta, w, lanes, s0=100.0):
-    """Gated corr-kernel Heston mirror: market rows 4 per double-bar step
-    (price pair then variance pair); both shocks beta-mixed."""
-    from qmmx_monolithic_monte_carlo_tpu.ops.pallas_mc import (
-        GATED_SUB,
-        _gated_stride,
-    )
-
-    v0, kappa, theta, xi, rho, mu, dt = hp
-    rho_perp = float(np.sqrt(max(0.0, 1.0 - rho * rho)))
-    perp = jnp.float32(np.sqrt(max(0.0, 1.0 - beta * beta)))
-    beta = jnp.float32(beta)
-    stride = _gated_stride("heston", False)
-    dtf = jnp.float32(dt)
-    two_pi = 6.283185307179586
-    log_s = jnp.full((GATED_SUB, lanes), jnp.float32(np.log(s0)))
-    v = jnp.full((GATED_SUB, lanes), jnp.float32(v0))
-    opens, closes, highs, lows, ties = [], [], [], [], []
-    for t2 in range(w // 2):
-        blk = lambda k: jnp.asarray(u_s[stride * t2 + k], jnp.float32)
-        mblk = lambda k: jnp.asarray(um[4 * t2 + k], jnp.float32)
-        mrad = jnp.sqrt(-2.0 * jnp.log(mblk(0)))
-        mang = two_pi * mblk(1)
-        zm = (mrad * jnp.cos(mang), mrad * jnp.sin(mang))
-        qmrad = jnp.sqrt(-2.0 * jnp.log(mblk(2)))
-        qmang = two_pi * mblk(3)
-        zqm = (qmrad * jnp.cos(qmang), qmrad * jnp.sin(qmang))
-        rad = jnp.sqrt(-2.0 * jnp.log(blk(0)))
-        ang = two_pi * blk(1)
-        ze = (rad * jnp.cos(ang), rad * jnp.sin(ang))
-        z_pair = tuple(beta * zm[i] + perp * ze[i] for i in range(2))
-        qrad = jnp.sqrt(-2.0 * jnp.log(blk(2)))
-        qang = two_pi * blk(3)
-        zqe = (qrad * jnp.cos(qang), qrad * jnp.sin(qang))
-        zq_pair = tuple(beta * zqm[i] + perp * zqe[i] for i in range(2))
-        for half in range(2):
-            z, zq = z_pair[half], zq_pair[half]
-            u3 = blk(4 + 3 * half)
-            u4 = blk(5 + 3 * half)
-            tie = blk(6 + 3 * half)
-            v_pos = jnp.maximum(v, 0.0)
-            sig_bar = jnp.sqrt(v_pos * dtf)
-            log_open = log_s
-            log_close = (log_s + (jnp.float32(mu) - 0.5 * v_pos) * dtf
-                         + sig_bar * z)
-            sig2dt = v_pos * dtf
-            v = (v + jnp.float32(kappa) * (jnp.float32(theta) - v_pos) * dtf
-                 + jnp.float32(xi) * sig_bar
-                 * (jnp.float32(rho) * z + jnp.float32(rho_perp) * zq))
-            d2 = (log_close - log_open) ** 2
-            highs.append(jnp.exp(0.5 * (
-                log_open + log_close
-                + jnp.sqrt(d2 - 2.0 * sig2dt * jnp.log(u3)))))
-            lows.append(jnp.exp(0.5 * (
-                log_open + log_close
-                - jnp.sqrt(d2 - 2.0 * sig2dt * jnp.log(u4)))))
-            opens.append(jnp.exp(log_open))
-            closes.append(jnp.exp(log_close))
-            ties.append(tie)
-            log_s = log_close
-
-    def flat(rows):
-        return jnp.stack(rows, axis=-1).reshape(GATED_SUB * lanes, w)
-
-    return PG.PathBars(open=flat(opens), high=flat(highs), low=flat(lows),
-                       close=flat(closes), volume=None), flat(ties)
-
-
-def _check_gated_book(sym, port, per_symbol, w, n, wts):
-    port_curve = jnp.zeros((w, n), jnp.float32)
-    tr = jnp.zeros((n,), jnp.int32)
-    wi, lo = tr, tr
-    opn = jnp.zeros((n,), bool)
-    for s, (out, curve) in enumerate(per_symbol):
-        stats = PathStats.from_lifecycle(
-            equity=out.equity, trades=out.trades, wins=out.wins,
-            losses=out.losses, open_at_end=out.open_at_end,
-            max_dd=out.max_dd)
-        for fld in ("n", "n_entered", "n_tp", "n_stop", "n_open",
-                    "sum_trades"):
-            assert float(getattr(sym, fld)[s]) == float(getattr(stats, fld)), (
-                s, fld)
-        np.testing.assert_array_equal(
-            np.asarray(sym.hist[s]), np.asarray(stats.hist))
-        port_curve = port_curve + wts[s] * curve
-        tr = tr + out.trades
-        wi = wi + out.wins
-        lo = lo + out.losses
-        opn = jnp.logical_or(opn, out.open_at_end)
-    final = port_curve[-1]
-    peak = jax.lax.cummax(jnp.maximum(port_curve, 0.0), axis=0)
-    pdd = jnp.max(peak - port_curve, axis=0)
-    pstats = PathStats.from_lifecycle(
-        equity=final, trades=tr, wins=wi, losses=lo, open_at_end=opn,
-        max_dd=pdd)
-    for fld in ("n", "n_entered", "n_tp", "n_stop", "n_open", "sum_trades"):
-        assert float(getattr(port, fld)) == float(getattr(pstats, fld)), fld
-    np.testing.assert_array_equal(
-        np.asarray(port.hist), np.asarray(pstats.hist))
-
-
-@pytest.mark.slow
-def test_gated_corr_bootstrap_exact():
-    """Gated corr kernel under JOINT recorded days == per-symbol
-    gated_path_replay + book combine (iid AND block form)."""
-    from qmmx_monolithic_monte_carlo_tpu.ops.pallas_mc import (
-        GATED_SUB,
-        _gated_stride,
-        mc_paths_pallas_gated_corr,
-    )
-    from qmmx_monolithic_monte_carlo_tpu.sim.gatedpath import (
-        GateConfig,
-        gated_path_replay,
-    )
-
-    w, lanes = 16, 128
-    n = GATED_SUB * lanes
-    stride = _gated_stride("bootstrap", False)
-    lv = U.stack_levels(ROWS2, max_levels=4)
-    hist2 = _stacked_histories([11, 23], 180)
-    params = EngineParams.default(stop_padding=0.25, tp_padding=0.18)
-    gate = GateConfig.from_params(params)
-    rng = np.random.default_rng(71)
-    for bl in (None, 4):
-        u = rng.uniform(1e-6, 1.0, (2, 1, stride * (w // 2), GATED_SUB,
-                                    lanes)).astype(np.float32)
-        um = rng.uniform(1e-6, 1.0, (1, 2 * (w // 2), GATED_SUB, lanes)
-                         ).astype(np.float32)
-        sym, port = mc_paths_pallas_gated_corr(
-            0, lv, params, S0, SG, BETA, WTS,
-            paths_per_symbol=n, num_bars=w, lanes=lanes,
-            sampler="bootstrap" if bl is None else "block_bootstrap",
-            hist_bars=hist2, block_len=bl or 10,
-            interpret=True, external_uniforms=u, market_uniforms=um)
-        per_symbol = []
-        for s in range(2):
-            lv_s = jax.tree_util.tree_map(lambda x: x[s], lv)
-            hist_s = jax.tree_util.tree_map(lambda x: x[s], hist2)
-            bars, tie = _gated_corr_boot_bars(
-                u[s, 0], um[0], hist_s, w, lanes, float(S0[s]), block_len=bl)
-            per_symbol.append(gated_path_replay(bars, lv_s, params, gate,
-                                                tie, return_curve=True))
-        _check_gated_book(sym, port, per_symbol, w, n, WTS)
-
-
-@pytest.mark.slow
-def test_gated_corr_heston_exact():
-    """Gated corr kernel under correlated Heston == per-symbol
-    gated_path_replay + book combine."""
-    from qmmx_monolithic_monte_carlo_tpu.ops.pallas_mc import (
-        GATED_SUB,
-        _gated_stride,
-        _heston_tuple as _gated_heston_tuple,
-        mc_paths_pallas_gated_corr,
-    )
-    from qmmx_monolithic_monte_carlo_tpu.sim.gatedpath import (
-        GateConfig,
-        gated_path_replay,
-    )
-
-    w, lanes = 16, 128
-    n = GATED_SUB * lanes
-    stride = _gated_stride("heston", False)
-    lv = U.stack_levels(ROWS2, max_levels=4)
-    params = EngineParams.default(stop_padding=0.25, tp_padding=0.18)
-    gate = GateConfig.from_params(params)
-    hp = _gated_heston_tuple(HPARAMS, 0.0, DT)
-    rng = np.random.default_rng(73)
-    u = rng.uniform(1e-6, 1.0, (2, 1, stride * (w // 2), GATED_SUB, lanes)
-                    ).astype(np.float32)
-    um = rng.uniform(1e-6, 1.0, (1, 4 * (w // 2), GATED_SUB, lanes)
-                     ).astype(np.float32)
-    sym, port = mc_paths_pallas_gated_corr(
-        0, lv, params, S0, SG, BETA, WTS,
-        paths_per_symbol=n, num_bars=w, lanes=lanes,
-        sampler="heston", heston=HPARAMS,
-        interpret=True, external_uniforms=u, market_uniforms=um)
-    per_symbol = []
-    for s in range(2):
-        lv_s = jax.tree_util.tree_map(lambda x: x[s], lv)
-        bars, tie = _gated_corr_heston_bars(u[s, 0], um[0], hp,
-                                            float(BETA[s]), w, lanes,
-                                            s0=float(S0[s]))
-        per_symbol.append(gated_path_replay(bars, lv_s, params, gate, tie,
-                                            return_curve=True))
-    _check_gated_book(sym, port, per_symbol, w, n, WTS)
-
-
-@pytest.mark.slow
-def test_engine_corr_antithetic_exact():
-    """Antithetic BOOK pairs: market AND idio shocks lane-flipped; the
-    fused corr kernel equals per-symbol replays of the mirrored tapes plus
-    the exact book combine."""
-    from .test_pallas_engine import _bars_from_uniforms
-
-    w, lanes = 12, 256
-    n = ENGINE_SUB * lanes
-    lv = U.stack_levels(ROWS2, max_levels=4)
-    params = EngineParams.default(stop_padding=0.25, tp_padding=0.18)
-    rng = np.random.default_rng(79)
-    u = rng.uniform(1e-6, 1.0, (2, 1, 10 * (w // 2), ENGINE_SUB, lanes)
-                    ).astype(np.float32)
-    um = rng.uniform(1e-6, 1.0, (1, 2 * (w // 2), ENGINE_SUB, lanes)
-                     ).astype(np.float32)
-    sym, port, skips, escal = mc_paths_pallas_engine_corr(
-        0, lv, params, S0, SG, BETA, WTS,
-        paths_per_symbol=n, num_bars=w, lanes=lanes, antithetic=True,
-        interpret=True, external_uniforms=u, market_uniforms=um)
-    per_symbol = []
-    for s in range(2):
-        lv_s = jax.tree_util.tree_map(lambda x: x[s], lv)
-        bars, tie = _bars_from_uniforms(
-            u[s, 0], float(SG[s]), lanes=lanes, w=w, s0=float(S0[s]),
-            um=um[0], beta=float(BETA[s]), antithetic=True)
-        per_symbol.append(EP.engine_path_replay(bars, lv_s, params, tie,
-                                                return_curve=True))
-    _check_book(sym, port, skips, escal, per_symbol, w, n, WTS)
-    # the pair structure is real: with beta=1 (pure market) and fresh-only
-    # bridge draws suppressed there is nothing to check beyond exactness —
-    # but antithetic must NOT equal the plain run
-    p_sym, _, _, _ = mc_paths_pallas_engine_corr(
-        0, lv, params, S0, SG, BETA, WTS,
-        paths_per_symbol=n, num_bars=w, lanes=lanes,
-        interpret=True, external_uniforms=u, market_uniforms=um)
-    assert (float(p_sym.sum_r[0]) != float(sym.sum_r[0])
-            or float(p_sym.sum_trades[0]) != float(sym.sum_trades[0]))
-
-
 def test_book_antithetic_validation():
-    lv = U.stack_levels(ROWS2, max_levels=4)
-    hist2 = _stacked_histories([11, 23], 160)
-    from qmmx_monolithic_monte_carlo_tpu.ops.pallas_mc import (
-        mc_paths_pallas_gated_corr,
-    )
     from qmmx_monolithic_monte_carlo_tpu.parallel.portfolio import (
+        portfolio_mc,
         portfolio_mc_engine,
     )
 
-    with pytest.raises(ValueError, match="gbm"):
-        mc_paths_pallas_engine_corr(
-            0, lv, EngineParams.default(), S0, SG, BETA, WTS,
-            paths_per_symbol=ENGINE_SUB * 256, num_bars=8, lanes=256,
-            sampler="bootstrap", hist_bars=hist2, antithetic=True)
-    with pytest.raises(ValueError, match="lanes"):
-        mc_paths_pallas_gated_corr(
-            0, lv, EngineParams.default(), S0, SG, BETA, WTS,
-            paths_per_symbol=8 * 128, num_bars=8, lanes=128,
-            antithetic=True)
+    lv = U.stack_levels(ROWS2, max_levels=4)
+    hist2 = _stacked_histories([11, 23], 160)
     with pytest.raises(ValueError, match="gbm"):
         portfolio_mc_engine(
             jax.random.key(0), lv, EngineParams.default(), S0, SG, BETA,
             WTS, num_paths=512, num_bars=8, block_paths=512,
             sampler="heston", antithetic=True)
+    with pytest.raises(ValueError, match="gbm"):
+        portfolio_mc(
+            jax.random.key(0), lv, EngineParams.default(), S0, SG, BETA,
+            WTS, num_paths=512, num_bars=8, block_paths=512,
+            sampler="bootstrap", hist_bars=hist2, antithetic=True)
+    with pytest.raises(ValueError, match="even"):
+        portfolio_mc_engine(
+            jax.random.key(0), lv, EngineParams.default(), S0, SG, BETA,
+            WTS, num_paths=511, num_bars=8, block_paths=511, antithetic=True)
 
 
 @pytest.mark.slow

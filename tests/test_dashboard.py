@@ -63,7 +63,7 @@ def test_chart_text_levels_and_guides():
 
 
 def test_cli_live_dashboard_smoke(tmp_path, capsys, monkeypatch):
-    """`qmmx-tpu live --synthetic --dashboard` runs under a non-tty console."""
+    """`qmmx live --synthetic --dashboard` runs under a non-tty console."""
     from qmmx_monolithic_monte_carlo_tpu.host import cli
 
     rc = cli.main(["--db", str(tmp_path / "q.db"), "live", "--synthetic",

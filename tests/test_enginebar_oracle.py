@@ -1,9 +1,9 @@
 """Wicked-bar scalar-oracle parity for the FULL-engine MC surface.
 
-VERDICT r3 weak #3: ``engine_path_replay``'s intrabar logic (stop/target off
-bar extremes, the distance-weighted same-bar tie coin :3472-3480, escalation
-interacting with intrabar extremes) was validated only engine-vs-kernel and
-on flat-wick tapes where ties are impossible.  These tests replay random
+``engine_path_replay``'s intrabar logic (stop/target off bar extremes, the
+distance-weighted same-bar tie coin :3472-3480, escalation interacting with
+intrabar extremes) is not exercised by flat-wick tapes, where ties are
+impossible.  These tests replay random
 WICKED tapes (GBM bridge extremes, paddings tight enough that both barriers
 routinely land inside one bar) through the scalar oracle
 (tests/oracle/enginebar.py) and require exact trades/wins/losses/escalation

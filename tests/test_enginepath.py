@@ -156,7 +156,7 @@ def test_mc_paths_engine_streams_blocks():
 
 
 def test_state_envelope_rejects_unrepresentable_params():
-    """(ADVICE r4) fatigue_hits > TAP_STACK and guard vol windows wider than
+    """fatigue_hits > TAP_STACK and guard vol windows wider than
     the shared BARS_RING would silently diverge in the windowed XLA forms —
     the launch-time envelope check must reject them, and must keep accepting
     the full representable range."""

@@ -8,7 +8,7 @@ import sqlite3
 import numpy as np
 import pytest
 
-from qmmx_monolithic_monte_carlo_tpu.io import analyzer, chart
+from qmmx_monolithic_monte_carlo_tpu.io import analyzer
 from qmmx_monolithic_monte_carlo_tpu.io import db as _db
 from qmmx_monolithic_monte_carlo_tpu.io import portfolio as port
 from qmmx_monolithic_monte_carlo_tpu.io import trainstore
@@ -176,6 +176,8 @@ def test_portfolio_snapshot_and_export(conn, tmp_path):
 
 
 def test_chart_renders_png(tmp_path):
+    from qmmx_monolithic_monte_carlo_tpu.io import chart   # needs matplotlib
+
     rng = np.random.default_rng(0)
     c = 100 + np.cumsum(rng.normal(0, 0.1, 50))
     bars = [{"t": i, "o": float(c[max(0, i - 1)]), "h": float(c[i] + 0.1),

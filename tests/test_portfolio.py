@@ -1,5 +1,4 @@
-"""Correlated multi-symbol universes + portfolio risk (parallel/portfolio.py
-and the fused corr kernel ops/pallas_mc.mc_paths_pallas_gated_corr).
+"""Correlated multi-symbol universes + portfolio risk (parallel/portfolio.py).
 
 The reference has no multi-symbol concept at all (its engine and MC hold one
 ticker, qmmx_monolithic.py:3353-3538) — these are joint-law capabilities the
@@ -12,22 +11,10 @@ import numpy as np
 import pytest
 
 from qmmx_monolithic_monte_carlo_tpu.config import EngineParams
-from qmmx_monolithic_monte_carlo_tpu.ops.pallas_mc import (
-    GATED_SUB,
-    mc_paths_pallas_gated_corr,
-)
-from qmmx_monolithic_monte_carlo_tpu.ops.pathgen import PathBars
 from qmmx_monolithic_monte_carlo_tpu.parallel import universe as U
 from qmmx_monolithic_monte_carlo_tpu.parallel.portfolio import portfolio_mc
-from qmmx_monolithic_monte_carlo_tpu.sim.gatedpath import (
-    GateConfig,
-    gated_path_replay,
-)
-from qmmx_monolithic_monte_carlo_tpu.sim.pathsim import PathStats
 
 W = 16
-LANES = 256
-DT = 1.0 / (390.0 * 252.0)
 PARAMS = EngineParams.default()
 
 ROWS2 = [
@@ -146,346 +133,6 @@ def test_portfolio_mc_engine_correlation_raises_book_variance():
     assert v1 > 1.5 * v0
 
 
-def _corr_bars_from_uniforms(u, um, beta, s0, sigma, w=W, lanes=LANES):
-    """Numpy mirror of the corr kernel's streaming-GBM bar construction:
-    z = beta * z_mkt + sqrt(1-beta^2) * eps (market pair at ks 8/9 ==
-    rows [2*t2, 2*t2+1] of the shared market tensor)."""
-    f = np.float32
-    drift = f((0.0 - 0.5 * sigma * sigma) * DT)
-    sig = f(sigma * np.sqrt(DT))
-    sig2dt = sig * sig
-    perp = f(np.sqrt(max(0.0, 1.0 - beta * beta)))
-    beta = f(beta)
-    log_s = np.full((GATED_SUB, lanes), f(np.log(s0)), f)
-    opens, closes, highs, lows, ties = [], [], [], [], []
-    for t2 in range(w // 2):
-        blk = lambda k: u[8 * t2 + k].astype(f)
-        mblk = lambda k: um[2 * t2 + k].astype(f)
-        mrad = np.sqrt(f(-2.0) * np.log(mblk(0)))
-        mang = f(2 * np.pi) * mblk(1)
-        zm = (mrad * np.cos(mang), mrad * np.sin(mang))
-        rad = np.sqrt(f(-2.0) * np.log(blk(0)))
-        ang = f(2 * np.pi) * blk(1)
-        ze = (rad * np.cos(ang), rad * np.sin(ang))
-        for half in range(2):
-            z = beta * zm[half] + perp * ze[half]
-            u3 = blk(2 + 3 * half)
-            u4 = blk(3 + 3 * half)
-            tie = blk(4 + 3 * half)
-            log_open = log_s
-            log_close = log_s + (drift + sig * z)
-            d2 = (log_close - log_open) ** 2
-            highs.append(np.exp(f(0.5) * (
-                log_open + log_close + np.sqrt(d2 - 2 * sig2dt * np.log(u3)))))
-            lows.append(np.exp(f(0.5) * (
-                log_open + log_close - np.sqrt(d2 - 2 * sig2dt * np.log(u4)))))
-            opens.append(np.exp(log_open))
-            closes.append(np.exp(log_close))
-            ties.append(tie)
-            log_s = log_close
-    n = GATED_SUB * lanes
-    flat = lambda rows: np.stack(rows, axis=-1).reshape(n, w)
-    return PathBars(
-        open=jnp.asarray(flat(opens)), high=jnp.asarray(flat(highs)),
-        low=jnp.asarray(flat(lows)), close=jnp.asarray(flat(closes)),
-        volume=jnp.zeros((n, w), jnp.float32)), jnp.asarray(flat(ties))
-
-
-@pytest.mark.slow
-def test_corr_kernel_matches_xla_oracle_exact_uniforms():
-    """Fused corr kernel vs the XLA portfolio pipeline from the SAME
-    injected uniforms: every count and histogram bin identical (per symbol
-    AND for the book); sums agree to f32 ulps (numpy oracle vs fused op
-    association)."""
-    lv = U.stack_levels(ROWS2, max_levels=4)
-    s0 = np.array([100.0, 50.0], np.float32)
-    sg = np.array([0.3, 0.4], np.float32)
-    beta = np.array([0.8, 0.6], np.float32)
-    wts = np.array([0.5, 0.5], np.float32)
-    rng = np.random.default_rng(11)
-    u = rng.uniform(1e-6, 1.0, (2, 1, 8 * (W // 2), GATED_SUB, LANES)
-                    ).astype(np.float32)
-    um = rng.uniform(1e-6, 1.0, (1, 2 * (W // 2), GATED_SUB, LANES)
-                     ).astype(np.float32)
-
-    sym, port = mc_paths_pallas_gated_corr(
-        0, lv, PARAMS, s0, sg, beta, wts,
-        paths_per_symbol=GATED_SUB * LANES, num_bars=W, lanes=LANES,
-        interpret=True, external_uniforms=u, market_uniforms=um)
-
-    gate = GateConfig.from_params(PARAMS)
-    n = GATED_SUB * LANES
-    port_curve = jnp.zeros((W, n), jnp.float32)
-    tr = jnp.zeros((n,), jnp.int32)
-    wi, lo = tr, tr
-    opn = jnp.zeros((n,), bool)
-    for s in range(2):
-        lv_s = jax.tree_util.tree_map(lambda x: x[s], lv)
-        bars, tie = _corr_bars_from_uniforms(
-            u[s, 0], um[0], float(beta[s]), float(s0[s]), float(sg[s]))
-        out, curve = gated_path_replay(bars, lv_s, PARAMS, gate, tie,
-                                       return_curve=True)
-        stats = PathStats.from_lifecycle(
-            equity=out.equity, trades=out.trades, wins=out.wins,
-            losses=out.losses, open_at_end=out.open_at_end,
-            max_dd=out.max_dd)
-        for fld in ("n", "n_entered", "n_tp", "n_stop", "n_open",
-                    "sum_trades"):
-            assert float(getattr(sym, fld)[s]) == float(getattr(stats, fld)), (
-                s, fld)
-        assert float(sym.sum_r[s]) == pytest.approx(
-            float(stats.sum_r), rel=1e-4)
-        port_curve = port_curve + wts[s] * curve
-        tr = tr + out.trades
-        wi = wi + out.wins
-        lo = lo + out.losses
-        opn = jnp.logical_or(opn, out.open_at_end)
-    final = port_curve[-1]
-    peak = jax.lax.cummax(jnp.maximum(port_curve, 0.0), axis=0)
-    pdd = jnp.max(peak - port_curve, axis=0)
-    pstats = PathStats.from_lifecycle(
-        equity=final, trades=tr, wins=wi, losses=lo, open_at_end=opn,
-        max_dd=pdd)
-    for fld in ("n", "n_entered", "n_tp", "n_stop", "n_open", "sum_trades"):
-        assert float(getattr(port, fld)) == float(getattr(pstats, fld)), fld
-    assert float(port.sum_r) == pytest.approx(float(pstats.sum_r), rel=1e-4)
-    assert float(port.max_dd) == pytest.approx(
-        float(pstats.max_dd), rel=1e-4, abs=1e-5)
-    np.testing.assert_array_equal(
-        np.asarray(port.hist), np.asarray(pstats.hist))
-
-
-@pytest.mark.slow
-def test_engine_corr_kernel_matches_xla_oracle_exact_uniforms():
-    """Fused FULL-ENGINE corr kernel vs sim/enginepath + the book combine
-    from the SAME injected uniforms: per-symbol counts, skip tables and
-    escalations exact; book counts and histogram exact; sums to f32 ulps."""
-    from qmmx_monolithic_monte_carlo_tpu.ops.pallas_engine import (
-        ENGINE_SUB,
-        mc_paths_pallas_engine_corr,
-    )
-    from qmmx_monolithic_monte_carlo_tpu.sim.enginepath import (
-        engine_path_replay,
-    )
-
-    from .test_pallas_engine import _bars_from_uniforms
-
-    w, lanes = 16, 256
-    n = ENGINE_SUB * lanes
-    lv = U.stack_levels(ROWS2, max_levels=4)
-    s0 = np.array([100.0, 50.0], np.float32)
-    sg = np.array([0.3, 0.4], np.float32)
-    beta = np.array([0.8, 0.6], np.float32)
-    wts = np.array([0.5, 0.5], np.float32)
-    rng = np.random.default_rng(23)
-    u = rng.uniform(1e-6, 1.0, (2, 1, 10 * (w // 2), ENGINE_SUB, lanes)
-                    ).astype(np.float32)
-    um = rng.uniform(1e-6, 1.0, (1, 2 * (w // 2), ENGINE_SUB, lanes)
-                     ).astype(np.float32)
-
-    sym, port, skips, escal = mc_paths_pallas_engine_corr(
-        0, lv, PARAMS, s0, sg, beta, wts,
-        paths_per_symbol=n, num_bars=w, lanes=lanes,
-        interpret=True, external_uniforms=u, market_uniforms=um)
-
-    port_curve = jnp.zeros((w, n), jnp.float32)
-    tr = jnp.zeros((n,), jnp.int32)
-    wi, lo = tr, tr
-    opn = jnp.zeros((n,), bool)
-    for s in range(2):
-        lv_s = jax.tree_util.tree_map(lambda x: x[s], lv)
-        bars, tie = _bars_from_uniforms(
-            u[s, 0], float(sg[s]), lanes=lanes, w=w, s0=float(s0[s]),
-            um=um[0], beta=float(beta[s]))
-        out, curve = engine_path_replay(bars, lv_s, PARAMS, tie,
-                                        return_curve=True)
-        stats = PathStats.from_lifecycle(
-            equity=out.equity, trades=out.trades, wins=out.wins,
-            losses=out.losses, open_at_end=out.open_at_end,
-            max_dd=out.max_dd)
-        for fld in ("n", "n_entered", "n_tp", "n_stop", "n_open",
-                    "sum_trades"):
-            assert float(getattr(sym, fld)[s]) == float(getattr(stats, fld)), (
-                s, fld)
-        np.testing.assert_array_equal(
-            np.asarray(skips[s]), np.asarray(out.skip_counts))
-        assert float(escal[s]) == float(jnp.sum(out.escalations))
-        assert float(sym.sum_r[s]) == pytest.approx(
-            float(stats.sum_r), rel=1e-4, abs=1e-4)
-        np.testing.assert_array_equal(
-            np.asarray(sym.hist[s]), np.asarray(stats.hist))
-        port_curve = port_curve + wts[s] * curve
-        tr = tr + out.trades
-        wi = wi + out.wins
-        lo = lo + out.losses
-        opn = jnp.logical_or(opn, out.open_at_end)
-    final = port_curve[-1]
-    peak = jax.lax.cummax(jnp.maximum(port_curve, 0.0), axis=0)
-    pdd = jnp.max(peak - port_curve, axis=0)
-    pstats = PathStats.from_lifecycle(
-        equity=final, trades=tr, wins=wi, losses=lo, open_at_end=opn,
-        max_dd=pdd)
-    for fld in ("n", "n_entered", "n_tp", "n_stop", "n_open", "sum_trades"):
-        assert float(getattr(port, fld)) == float(getattr(pstats, fld)), fld
-    assert float(port.sum_r) == pytest.approx(float(pstats.sum_r), rel=1e-4,
-                                              abs=1e-4)
-    assert float(port.max_dd) == pytest.approx(
-        float(pstats.max_dd), rel=1e-4, abs=1e-5)
-    np.testing.assert_array_equal(
-        np.asarray(port.hist), np.asarray(pstats.hist))
-
-
-@pytest.mark.slow
-def test_sharded_corr_kernels_match_single_device():
-    """Both corr kernels ride the mesh (parallel/mesh.sharded_mc_paths_pallas
-    _corr): a 2-device shard_map run over injected uniforms equals the
-    single-device kernel exactly on counts and histograms, per symbol AND
-    for the book (the psum/pmin/pmax merge of the portfolio accumulator)."""
-    from qmmx_monolithic_monte_carlo_tpu.ops.pallas_engine import (
-        ENGINE_SUB,
-        mc_paths_pallas_engine_corr,
-    )
-    from qmmx_monolithic_monte_carlo_tpu.parallel import mesh as PM
-
-    lv = U.stack_levels(ROWS2, max_levels=4)
-    s0 = np.array([100.0, 50.0], np.float32)
-    sg = np.array([0.3, 0.4], np.float32)
-    beta = np.array([0.8, 0.6], np.float32)
-    wts = np.array([0.5, 0.5], np.float32)
-    mesh = PM.make_mesh(2)
-    rng = np.random.default_rng(31)
-
-    def check(sh, single):
-        for f in ("n", "n_entered", "n_tp", "n_stop", "n_open", "sum_trades"):
-            np.testing.assert_array_equal(
-                np.asarray(getattr(sh, f)), np.asarray(getattr(single, f)), f)
-        np.testing.assert_array_equal(np.asarray(sh.hist),
-                                      np.asarray(single.hist))
-        np.testing.assert_allclose(np.asarray(sh.sum_r),
-                                   np.asarray(single.sum_r), rtol=1e-5)
-
-    # gated corr
-    w, lanes = 16, 256
-    u = rng.uniform(1e-6, 1.0, (2, 2, 8 * (w // 2), GATED_SUB, lanes)
-                    ).astype(np.float32)
-    um = rng.uniform(1e-6, 1.0, (2, 2 * (w // 2), GATED_SUB, lanes)
-                     ).astype(np.float32)
-    sh_sym, sh_port = PM.sharded_mc_paths_pallas_corr(
-        mesh, 0, lv, PARAMS, s0, sg, beta, wts,
-        paths_per_symbol=2 * GATED_SUB * lanes, num_bars=w, lanes=lanes,
-        interpret=True, external_uniforms=u, market_uniforms=um)
-    sym, port = mc_paths_pallas_gated_corr(
-        0, lv, PARAMS, s0, sg, beta, wts,
-        paths_per_symbol=2 * GATED_SUB * lanes, num_bars=w, lanes=lanes,
-        interpret=True, external_uniforms=u, market_uniforms=um)
-    check(sh_sym, sym)
-    check(sh_port, port)
-
-    # engine corr
-    w, lanes = 12, 128
-    u = rng.uniform(1e-6, 1.0, (2, 2, 10 * (w // 2), ENGINE_SUB, lanes)
-                    ).astype(np.float32)
-    um = rng.uniform(1e-6, 1.0, (2, 2 * (w // 2), ENGINE_SUB, lanes)
-                     ).astype(np.float32)
-    sh_sym, sh_port, sh_skips, sh_escal, sh_hv = (
-        PM.sharded_mc_paths_pallas_corr(
-            mesh, 0, lv, PARAMS, s0, sg, beta, wts,
-            paths_per_symbol=2 * ENGINE_SUB * lanes, num_bars=w, lanes=lanes,
-            engine=True, harvest=True, interpret=True, external_uniforms=u,
-            market_uniforms=um))
-    sym, port, skips, escal, hv = mc_paths_pallas_engine_corr(
-        0, lv, PARAMS, s0, sg, beta, wts,
-        paths_per_symbol=2 * ENGINE_SUB * lanes, num_bars=w, lanes=lanes,
-        harvest=True, interpret=True, external_uniforms=u,
-        market_uniforms=um)
-    check(sh_sym, sym)
-    check(sh_port, port)
-    np.testing.assert_array_equal(np.asarray(sh_skips), np.asarray(skips))
-    np.testing.assert_array_equal(np.asarray(sh_escal), np.asarray(escal))
-    # the psum-merged book harvest: counts bitwise, sums to ulps
-    np.testing.assert_array_equal(np.asarray(sh_hv.ml_counts),
-                                  np.asarray(hv.ml_counts))
-    np.testing.assert_array_equal(np.asarray(sh_hv.pol_counts),
-                                  np.asarray(hv.pol_counts))
-    np.testing.assert_allclose(np.asarray(sh_hv.pol_sum_x1),
-                               np.asarray(hv.pol_sum_x1), rtol=1e-5)
-    np.testing.assert_allclose(np.asarray(sh_hv.pol_sum_x6),
-                               np.asarray(hv.pol_sum_x6), rtol=1e-5)
-
-
-@pytest.mark.slow
-def test_engine_corr_kernel_harvest_matches_per_symbol_replay():
-    """Book-level flywheel: the corr kernel's harvest=True returns the
-    [S]-batched EngineHarvest equal to per-symbol engine_path_replay
-    harvests of the SAME correlated tapes bitwise (counts) / to ulps
-    (sums), and harvesting does not perturb the book stats — so per-symbol
-    refreshes train on labels produced under the co-movement regime."""
-    from qmmx_monolithic_monte_carlo_tpu.models import harvest as HV
-    from qmmx_monolithic_monte_carlo_tpu.ops.pallas_engine import (
-        ENGINE_SUB,
-        mc_paths_pallas_engine_corr,
-    )
-    from qmmx_monolithic_monte_carlo_tpu.sim.enginepath import (
-        engine_path_replay,
-    )
-
-    from .test_pallas_engine import _bars_from_uniforms
-
-    w, lanes = 12, 128
-    n = ENGINE_SUB * lanes
-    lv = U.stack_levels(ROWS2, max_levels=4)
-    s0 = np.array([100.0, 50.0], np.float32)
-    sg = np.array([0.4, 0.5], np.float32)
-    beta = np.array([0.8, 0.6], np.float32)
-    wts = np.array([0.5, 0.5], np.float32)
-    params = EngineParams.default(stop_padding=0.15, tp_padding=0.10)
-    rng = np.random.default_rng(37)
-    u = rng.uniform(1e-6, 1.0, (2, 1, 10 * (w // 2), ENGINE_SUB, lanes)
-                    ).astype(np.float32)
-    um = rng.uniform(1e-6, 1.0, (1, 2 * (w // 2), ENGINE_SUB, lanes)
-                     ).astype(np.float32)
-
-    sym, port, skips, escal, hv = mc_paths_pallas_engine_corr(
-        0, lv, params, s0, sg, beta, wts,
-        paths_per_symbol=n, num_bars=w, lanes=lanes, harvest=True,
-        interpret=True, external_uniforms=u, market_uniforms=um)
-    assert hv.ml_counts.shape == (2, HV.ML_BUCKETS, 2)
-
-    # harvesting must not perturb the book simulation itself
-    b_sym, b_port, b_skips, b_escal = mc_paths_pallas_engine_corr(
-        0, lv, params, s0, sg, beta, wts,
-        paths_per_symbol=n, num_bars=w, lanes=lanes,
-        interpret=True, external_uniforms=u, market_uniforms=um)
-    for f in ("n", "n_entered", "n_tp", "n_stop", "sum_trades", "sum_r"):
-        np.testing.assert_array_equal(
-            np.asarray(getattr(sym, f)), np.asarray(getattr(b_sym, f)), f)
-        np.testing.assert_array_equal(
-            np.asarray(getattr(port, f)), np.asarray(getattr(b_port, f)), f)
-    np.testing.assert_array_equal(np.asarray(skips), np.asarray(b_skips))
-    np.testing.assert_array_equal(np.asarray(escal), np.asarray(b_escal))
-
-    labeled = 0.0
-    for s in range(2):
-        lv_s = jax.tree_util.tree_map(lambda x: x[s], lv)
-        bars, tie = _bars_from_uniforms(
-            u[s, 0], float(sg[s]), lanes=lanes, w=w, s0=float(s0[s]),
-            um=um[0], beta=float(beta[s]))
-        out = engine_path_replay(bars, lv_s, params, tie, harvest=True)
-        want = out.harvest
-        np.testing.assert_array_equal(np.asarray(hv.ml_counts[s]),
-                                      np.asarray(want.ml_counts))
-        np.testing.assert_array_equal(np.asarray(hv.pol_counts[s]),
-                                      np.asarray(want.pol_counts))
-        np.testing.assert_allclose(np.asarray(hv.pol_sum_x1[s]),
-                                   np.asarray(want.pol_sum_x1), rtol=1e-5)
-        np.testing.assert_allclose(np.asarray(hv.pol_sum_x6[s]),
-                                   np.asarray(want.pol_sum_x6), rtol=1e-5)
-        # label count == closed trades == wins + losses of this symbol
-        assert float(hv.n_labeled[s]) == float(sym.n_tp[s] + sym.n_stop[s])
-        labeled += float(hv.n_labeled[s])
-    assert labeled > 0
-
-
 @pytest.mark.slow
 def test_portfolio_mc_engine_harvest_accumulates_and_refreshes():
     """The XLA book pipeline's harvest=True: per-symbol label counts equal
@@ -525,26 +172,3 @@ def test_portfolio_mc_engine_harvest_accumulates_and_refreshes():
     assert xs.shape == (2, 2 * HV.ML_BUCKETS, 4)
     m = U.universe_policy_refresh(None, xs, ys, ws)
     assert np.all(np.isfinite(np.asarray(m.coef)))
-
-
-def test_corr_kernel_rejects_bad_shapes():
-    lv = U.stack_levels(ROWS2, max_levels=4)
-    s0 = np.array([100.0, 50.0], np.float32)
-    sg = np.array([0.3, 0.4], np.float32)
-    b = np.array([0.5, 0.5], np.float32)
-    w = np.array([0.5, 0.5], np.float32)
-    with pytest.raises(ValueError):
-        mc_paths_pallas_gated_corr(
-            0, lv, PARAMS, s0, sg, b, w,
-            paths_per_symbol=GATED_SUB * LANES + 1, num_bars=W, lanes=LANES)
-    with pytest.raises(ValueError):
-        mc_paths_pallas_gated_corr(
-            0, lv, PARAMS, s0, sg, b, w,
-            paths_per_symbol=GATED_SUB * LANES, num_bars=W + 1, lanes=LANES)
-    with pytest.raises(ValueError):
-        # external uniforms require the shared market tensor too
-        mc_paths_pallas_gated_corr(
-            0, lv, PARAMS, s0, sg, b, w,
-            paths_per_symbol=GATED_SUB * LANES, num_bars=W, lanes=LANES,
-            external_uniforms=np.zeros(
-                (2, 1, 8 * (W // 2), GATED_SUB, LANES), np.float32))

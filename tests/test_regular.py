@@ -1,6 +1,6 @@
 """ops/regular.py: bar-synchronous guard/touch must match ops/guard.py and
 ops/touch.py exactly on regularly spaced 1-minute bar sequences (the lean
-forms drive the scaled engine pipeline and the fused kernel)."""
+forms drive the scaled engine pipeline)."""
 
 import jax
 import jax.numpy as jnp

@@ -103,7 +103,7 @@ def test_first_contact_exact_tail_matches_sorted_oracle(q):
 
 @pytest.mark.slow
 def test_first_contact_exact_tail_large_population():
-    """2^20 paths (VERDICT r4 item 3's stated bar), bitwise vs np.sort."""
+    """2^20 paths, bitwise vs np.sort."""
     key = jax.random.key(3)
     num_paths, block_paths = 1 << 20, 1 << 16
     tail = tailexact.exact_tail_paths(
